@@ -1,0 +1,488 @@
+"""Drive dfmdock_tpu_torch's main path on one CUDA card and check its kernels.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a non-zero exit:
+  1. device: the card's name and power limit;
+  2. build: nvcc builds every kernel of dfmdock_tpu_torch/csrc/, in parallel;
+  3. kernel checks: each kernel against its plain PyTorch version on the
+     card, at the dock path's shapes (P=16 poses of DB5 1AVX padded to
+     N=448, K=60, C=256; three seeds) and on a small masked graph (N=64,
+     40 valid nodes);
+  4. ScoreNet parity: the forward through the kernels (card) against the
+     forward through the plain versions (CPU), full width, seeded weights,
+     t in {0.1, 0.5, 0.9};
+  5. dock: the dock CLI in-process on 1AVX, 16 poses x 40 steps, after a
+     warm-up run; steps/s, each kernel's time, launches and bound;
+  6. sampler: denoising steps/s over EMSampler.sample alone (the same 16
+     poses x 40 steps, no model build, file I/O or DockQ), three runs;
+  7. profile: torch.profiler over a 10-step sample of the same complex; the
+     device's busy share, the kernels that take its time, and each port
+     kernel's device time per launch.
+The last line is {"ok": true, "device": {...}}; the line before it lists the
+kernels.  Without a CUDA card the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import csv
+import glob
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from dfmdock_tpu_torch.cli import dock
+from dfmdock_tpu_torch.cli.common import build_sampler, load_model
+from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
+from dfmdock_tpu_torch.data.convert import load_npz_complex
+from dfmdock_tpu_torch.data.dataset import batch_to_tensors, complex_to_batch
+from dfmdock_tpu_torch.features.sixd import (
+    ANGLE_BOUNDARIES,
+    DIST_BOUNDARIES,
+    PHI_BOUNDARIES,
+    SPATIAL_DIM,
+    pairwise_ca_dist,
+    sixd_values_at,
+)
+from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
+from dfmdock_tpu_torch.models.edges import select_edges
+from dfmdock_tpu_torch.ops import _build
+from dfmdock_tpu_torch.ops.edge_table import (
+    E_DB,
+    E_OB,
+    E_PB,
+    E_RP,
+    E_TB,
+    EBIN_WIDTH,
+    EGEO_WIDTH,
+    build_edge_table,
+    build_edge_table_plain,
+)
+from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, fused_edge_layer_plain
+from dfmdock_tpu_torch.sampler.em import randomize_pose
+
+NPZ = os.path.join("data", "db5_npz", "1AVX.npz")
+P, N_PAD, STEPS = 16, 448, 40
+F32_REL = 1e-4  # kernel vs plain, max |diff| / max |plain|, float32 outputs
+# Kernel-path vs plain-path ScoreNet tolerances (max |diff| / max |ref|), a
+# case passing on either the relative or the absolute criterion.  The port's
+# own copy of bench.py's PARITY_TOL / PARITY_ABS, which were set for bf16
+# kernels against the f32 path.  The absolute criterion counts only for an
+# output whose largest reference value exceeds it (else a zero output would
+# pass).  The port's kernels are f32, so every output must also lie within
+# F32_PARITY_REL of the plain path.
+PARITY_TOL = {"energy": 1e-2, "tr_score": 1e-2, "rot_score": 2e-2, "f": 5e-2,
+              "ires": 1e-1}
+PARITY_ABS = {"energy": 5e-3, "tr_score": 1e-3, "rot_score": 2e-3, "f": 5e-3,
+              "ires": 5e-3}
+F32_PARITY_REL = 1e-3
+# A bin may differ only where the plain version's value lies this close to
+# one of its family's boundaries (rounding of atan2f/acosf/sqrtf and of the
+# summation order differs between the kernel and PyTorch's own kernels).
+TIE_TOL = {E_DB: 1e-4, E_OB: 1e-3, E_TB: 1e-3, E_PB: 1e-3}  # Angstrom, degrees
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM rate, FP32 rate
+# outside the tensor cores (the kernels' FMAs are FP32).
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+# f32 operations per edge in csrc/edge_table.cu, counted from the source:
+# two virtual CBs (2 x 24), two dihedrals (2 x 62), the planar angle (22),
+# distance and coord-diff (18), 96 boundary compares.
+EDGE_TABLE_OPS_PER_EDGE = 308
+SOURCES = {
+    "edge_table": ("dfmdock_tpu_torch/csrc/edge_table.cu",
+                   "dfmdock_tpu/ops/edge_table.py:218"),
+    "fused_egcl": ("dfmdock_tpu_torch/csrc/fused_egcl.cu",
+                   "dfmdock_tpu/ops/fused_egcl.py:216"),
+    "fused_egcl_coord": ("dfmdock_tpu_torch/csrc/fused_egcl.cu",
+                         "dfmdock_tpu/ops/fused_egcl.py:226"),
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def max_errs(out, ref):
+    """(max |out - ref|, that over max |ref|, max |ref|)."""
+    err = (out.double() - ref.double()).abs().max().item()
+    scale = ref.double().abs().max().item()
+    return err, err / (scale + 1e-30), scale
+
+
+def time_ms(fn, reps=5, inner=10):
+    """Median over `reps` of the mean time of `inner` back-to-back calls,
+    from CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def reset_counts():
+    build_edge_table.launches = 0
+    fused_edge_layer.launches = 0
+    fused_edge_layer.coord_launches = 0
+
+
+def counts():
+    return {"edge_table": build_edge_table.launches,
+            "fused_egcl": fused_edge_layer.launches,
+            "fused_egcl_coord": fused_edge_layer.coord_launches}
+
+
+def device_phase():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"# card: {smi}")
+    log(smi)
+    return smi
+
+
+def edge_inputs(raw, n_pad, num_poses, seed, device):
+    """num_poses random start poses of one complex, their edges (from the
+    port's own selection) and the batch they come from."""
+    batch = batch_to_tensors(complex_to_batch(raw, pad_to=n_pad), device)
+    gen = torch.Generator(device).manual_seed(seed)
+    pos, _, _ = randomize_pose(gen, batch["pos"], batch["lig_mask"],
+                               batch["node_mask"], SamplerConfig(), num_poses)
+    pos = pos.contiguous()
+    idx, edge_mask = select_edges(pairwise_ca_dist(pos), batch["node_mask"],
+                                  generator=gen)
+    return batch, pos, idx, edge_mask
+
+
+def check_bins(ebin_k, ebin_p, pos, idx, valid):
+    """Bins of kernel and plain agree except at boundary ties.  Returns
+    (ties on valid edges, mismatches on masked edges)."""
+    dist, omega, theta, phi, _ = sixd_values_at(pos, idx)
+    near22 = (dist - 22.0).abs() < TIE_TOL[E_DB]  # angle bins zeroed there
+    fams = {E_DB: (dist, DIST_BOUNDARIES), E_OB: (omega, ANGLE_BOUNDARIES),
+            E_TB: (theta, ANGLE_BOUNDARIES), E_PB: (phi, PHI_BOUNDARIES)}
+    if not torch.equal(ebin_k[..., E_RP], ebin_p[..., E_RP]):  # relpos: exact
+        raise AssertionError("edge_table relpos class differs from the plain version")
+    ties = masked = 0
+    for col, (val, bounds) in fams.items():
+        mism = ebin_k[..., col] != ebin_p[..., col]
+        b = torch.tensor(bounds, device=val.device)
+        near = (val[..., None] - b).abs().min(-1).values < TIE_TOL[col]
+        if col != E_DB:
+            near = near | near22
+        bad = mism & valid & ~near
+        if bad.any():
+            raise AssertionError(
+                f"edge_table bin column {col}: {int(bad.sum())} mismatches away "
+                "from any boundary on valid edges")
+        ties += int((mism & valid).sum())
+        masked += int((mism & ~valid).sum())
+    return ties, masked
+
+
+def fused_inputs(idx, edge_mask, ebin, egeo, c, seed, device):
+    """Seeded a, B, tables and weights of one EGCL layer at width c."""
+    g = torch.Generator().manual_seed(seed)
+    p, n = ebin.shape[:2]
+    r = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).to(device)
+    w = 1.0 / math.sqrt(c)
+    a, B = r(p, n, c), r(p, n, c)
+    t_sp, t_p = r(SPATIAL_DIM, c, scale=0.3), r(NUM_RELPOS_CLASSES, c, scale=0.3)
+    args = (idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, r(c, scale=0.01), r(c, c, scale=w),
+            r(c, scale=0.1), r(c, scale=w), r(1, scale=0.1))
+    coord = (r(c, c, scale=w), r(c, scale=0.1), r(c, scale=w))
+    return args, coord
+
+
+def kernel_phase(raw, device):
+    """Every kernel against its plain version on the card."""
+    errs = {name: 0.0 for name in SOURCES}
+    cases = [(P, N_PAD, s, None) for s in (0, 1, 2)]
+    # small masked graph: 40 valid nodes of 1AVX padded to 64
+    small = dict(raw)
+    for key in ("rec_x", "rec_pos"):
+        small[key] = raw[key][:24]
+    for key in ("lig_x", "lig_pos"):
+        small[key] = raw[key][:16]
+    small["rec_seq"], small["lig_seq"] = raw["rec_seq"][:24], raw["lig_seq"][:16]
+    cases.append((2, 64, 3, small))
+    main_inputs = None
+    for num_poses, n_pad, seed, cx in cases:
+        batch, pos, idx, edge_mask = edge_inputs(cx or raw, n_pad, num_poses, seed, device)
+        args = (idx, pos, batch["res_id"], batch["asym_id"])
+        ebin_k, egeo_k = build_edge_table(*args, normalize=True)
+        ebin_p, egeo_p = build_edge_table_plain(*args, normalize=True)
+        torch.cuda.synchronize()
+        valid = edge_mask > 0.5
+        ties, masked = check_bins(ebin_k, ebin_p, pos, idx, valid)
+        if not torch.isfinite(egeo_k).all():
+            raise AssertionError("edge_table wrote non-finite geometry")
+        abs_g, rel_g, _ = max_errs(egeo_k[valid], egeo_p[valid])
+        if rel_g > F32_REL:
+            raise AssertionError(f"edge_table geometry rel err {rel_g:.3e}")
+        errs["edge_table"] = max(errs["edge_table"], abs_g)
+        log(f"# edge_table P={num_poses} N={n_pad} seed={seed}: valid edges "
+            f"{int(valid.sum())}/{valid.numel()}, bin ties {ties}, masked-edge bin "
+            f"diffs {masked}, geometry max abs {abs_g:.3e} rel {rel_g:.3e}")
+
+        layer_args, coord = fused_inputs(idx, edge_mask, ebin_k, egeo_k, 256, seed, device)
+        agg_k = fused_edge_layer(*layer_args)
+        agg_c, trans_k = fused_edge_layer(*layer_args, coord)
+        agg_p = fused_edge_layer_plain(*layer_args)
+        agg_cp, trans_p = fused_edge_layer_plain(*layer_args, coord)
+        torch.cuda.synchronize()
+        for name, out, ref in (("fused_egcl agg", agg_k, agg_p),
+                               ("fused_egcl_coord agg", agg_c, agg_cp),
+                               ("fused_egcl_coord trans", trans_k, trans_p)):
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"{name}: non-finite output")
+            a_err, r_err, _ = max_errs(out, ref)
+            if r_err > F32_REL:
+                raise AssertionError(f"{name}: rel err {r_err:.3e} > {F32_REL}")
+            key = name.split()[0]
+            errs[key] = max(errs[key], a_err)
+            log(f"# {name} P={num_poses} N={n_pad} seed={seed}: max abs {a_err:.3e} "
+                f"rel {r_err:.3e}")
+        if main_inputs is None:
+            main_inputs = (args, layer_args, coord)
+    return errs, main_inputs
+
+
+def parity_phase(raw, device):
+    """ScoreNet through the kernels (card) vs through the plain versions
+    (CPU), same seeded weights, same edges."""
+    cfg = DFMDockConfig(model=ModelConfig.fast())
+    net_k = load_model(None, cfg, device, seed=0)
+    net_p = load_model(None, cfg, torch.device("cpu"), seed=0)
+    batch, pos, idx, edge_mask = edge_inputs(raw, N_PAD, 2, 7, device)
+    native = batch["pos"][None]
+    pos = torch.cat([native, pos[:1]]).contiguous()  # native + one random pose
+    idx_n, mask_n = select_edges(pairwise_ca_dist(native), batch["node_mask"],
+                                 generator=torch.Generator(device).manual_seed(8))
+    idx = torch.cat([idx_n, idx[:1]]).contiguous()
+    edge_mask = torch.cat([mask_n, edge_mask[:1]]).contiguous()
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    with torch.no_grad():
+        for t in (0.1, 0.5, 0.9):
+            o_k = net_k(batch, pos, t, edges=(idx, edge_mask))
+            o_p = net_p(cpu(batch), pos.cpu(), t, edges=(idx.cpu(), edge_mask.cpu()))
+            for name in PARITY_TOL:
+                a_err, r_err, scale = max_errs(o_k[name].cpu(), o_p[name])
+                ok = (r_err < PARITY_TOL[name]
+                      or a_err < PARITY_ABS[name] < scale) and r_err <= F32_PARITY_REL
+                log(f"# parity t={t} {name}: max abs {a_err:.3e} rel {r_err:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"ScoreNet parity failed: {name} at t={t}")
+            if not torch.equal(o_k["num_clashes"].cpu(), o_p["num_clashes"]):
+                raise AssertionError("ScoreNet parity failed: num_clashes")
+
+
+def dock_phase(out_root):
+    """The dock CLI in-process: warm-up, then the counted and timed run."""
+    warm = os.path.join(out_root, "warm")
+    dock.main(["--npz", NPZ, "--num-samples", str(P), "--num-steps", "2",
+               "--out-dir", warm])
+    out = os.path.join(out_root, "dock")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = dock.main(["--npz", NPZ, "--num-samples", str(P), "--num-steps",
+                      str(STEPS), "--out-dir", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the dock run launched no {name} kernel")
+    with open(os.path.join(out, "metrics.csv")) as f:
+        csv_rows = list(csv.DictReader(f))
+    if len(csv_rows) != P or len(rows) != P:
+        raise AssertionError(f"expected {P} CSV rows, got {len(csv_rows)}")
+    energies = np.array([float(r["energy"]) for r in csv_rows])
+    if not np.isfinite(energies).all():
+        raise AssertionError("non-finite energies in the CSV")
+    if not glob.glob(os.path.join(out, "1AVX_*.pdb")):
+        raise AssertionError("no PDB written")
+    steps_s = P * STEPS / wall
+    log(f"# dock 1AVX P={P} steps={STEPS}: wall {wall:.3f} s, {steps_s:.2f} "
+        f"denoising steps/s, {wall / P:.4f} s per docked pose, "
+        f"best DockQ {max(float(r['DockQ']) for r in csv_rows):.4f}")
+    log(f"# launches in the dock run: {json.dumps(launches)} "
+        f"(per forward: {({k: v / (STEPS + 1) for k, v in launches.items()})})")
+    return launches, steps_s
+
+
+def sampler_phase(raw, device, reps=3):
+    """Denoising steps/s over EMSampler.sample alone: P poses x STEPS steps
+    and the final full forward, a synchronize on each side, after a
+    warm-up; the median of `reps` runs."""
+    cfg = DFMDockConfig(model=ModelConfig.fast(), sampler=SamplerConfig(num_steps=STEPS))
+    sampler = build_sampler(load_model(None, cfg, device), cfg)
+    batch = batch_to_tensors(complex_to_batch(raw), device)
+    gen = torch.Generator(device).manual_seed(0)
+    sampler.sample(batch, P, gen)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler.sample(batch, P, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not torch.isfinite(out["energy"]).all():
+            raise AssertionError("sampler: non-finite energies")
+    wall = statistics.median(walls)
+    log(f"# sampler 1AVX P={P} steps={STEPS}: {P * STEPS / wall:.2f} denoising steps/s "
+        f"(median of {[round(w, 4) for w in walls]} s)")
+    return P * STEPS / wall
+
+
+def profile_phase(raw, device, steps=10, top=12):
+    """Device time by kernel over one sample of P poses x `steps` steps (+ the
+    final full forward), after a warm-up sample."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = DFMDockConfig(model=ModelConfig.fast(), sampler=SamplerConfig(num_steps=steps))
+    sampler = build_sampler(load_model(None, cfg, device), cfg)
+    batch = batch_to_tensors(complex_to_batch(raw), device)
+    gen = torch.Generator(device).manual_seed(0)
+    sampler.sample(batch, P, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sampler.sample(batch, P, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
+        e, "self_cuda_time_total", 0)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if busy_ms == 0:
+        log("# profile: the profiler recorded no device time (not measured)")
+        return
+    log(f"# profile P={P} steps={steps}+final forward: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
+        log(f"#   {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / 1e3 / busy_ms:5.1f}% "
+            f"x{e.count:<5d} {e.key[:90]}")
+    # device time alone, without the wrapper's host work that CUDA events
+    # around the wrapper also see when the kernel is short
+    for name, key in (("edge_table", "edge_table_kernel("),
+                      ("fused_egcl", "fused_egcl_kernel<false>"),
+                      ("fused_egcl_coord", "fused_egcl_kernel<true>")):
+        hits = [e for e in kernels if key in e.key]
+        launches = sum(e.count for e in hits)
+        if launches:
+            log(f"# profile {name}: {sum(map(dev_us, hits)) / 1e3 / launches:.4f} ms "
+                f"device time per launch (x{launches})")
+
+
+def bounds(table_args, layer_args):
+    """Least time the card could take for each kernel's work (ms): the bytes
+    the function must move (each input read once, each output written once)
+    over the HBM rate, or its FLOPs over the FP32 rate, whichever is larger."""
+    idx = table_args[0]
+    p, n, k = idx.shape
+    e = p * n * k
+    c = layer_args[4].shape[-1]
+    # edge_table: idx in; bins and geometry out; pos, res_id, asym_id once
+    tb_bytes = e * 4 * (1 + EBIN_WIDTH + EGEO_WIDTH) + p * n * 36 + 2 * n * 4
+    tb_ops = e * EDGE_TABLE_OPS_PER_EDGE
+    table = max(tb_bytes / HBM_BYTES_S, tb_ops / FP32_FLOP_S) * 1e3
+    table_by = "bytes" if tb_bytes / HBM_BYTES_S >= tb_ops / FP32_FLOP_S else "operations"
+    # fused_egcl: per edge idx, mask, bins, radial (+ coord-diff on the coord
+    # layer); a, B in and agg out; tables and weights once.  Operations: the
+    # [C] x [C, C] product per edge (twice on the coord layer).
+    tables = (SPATIAL_DIM + NUM_RELPOS_CLASSES) * c + c * c + 3 * c + 1
+    base = 4 * (e * (3 + EBIN_WIDTH) + 3 * p * n * c + tables)
+    coord_bytes = base + 4 * (e * 3 + c * c + 2 * c + p * n * 3)
+    gemm = 2 * e * c * c
+    layer = max(base / HBM_BYTES_S, gemm / FP32_FLOP_S) * 1e3
+    coord = max(coord_bytes / HBM_BYTES_S, 2 * gemm / FP32_FLOP_S) * 1e3
+    return {"edge_table": (table, table_by), "fused_egcl": (layer, "operations"),
+            "fused_egcl_coord": (coord, "operations")}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    t_start = time.perf_counter()
+    smi = device_phase()
+
+    t0 = time.perf_counter()
+    built = _build.build("edge_table", "fused_egcl")
+    log(f"# build: {json.dumps({k: round(v, 2) for k, v in built.items()})} s per "
+        f"source (parallel), {time.perf_counter() - t0:.2f} s wall")
+
+    raw = load_npz_complex(NPZ)
+    raw["id"] = "1AVX"
+    t0 = time.perf_counter()
+    errs, (table_args, layer_args, coord) = kernel_phase(raw, device)
+    log(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    parity_phase(raw, device)
+    log(f"# ScoreNet parity: {time.perf_counter() - t0:.1f} s")
+
+    with tempfile.TemporaryDirectory() as out_root:
+        launches, steps_s = dock_phase(out_root)
+    sampler_steps_s = sampler_phase(raw, device)
+
+    t0 = time.perf_counter()
+    profile_phase(raw, device)
+    log(f"# profile: {time.perf_counter() - t0:.1f} s")
+
+    table_kw = dict(normalize=True)
+    timings = {
+        "edge_table": (lambda: build_edge_table(*table_args, **table_kw),
+                       lambda: build_edge_table_plain(*table_args, **table_kw)),
+        "fused_egcl": (lambda: fused_edge_layer(*layer_args),
+                       lambda: fused_edge_layer_plain(*layer_args)),
+        "fused_egcl_coord": (lambda: fused_edge_layer(*layer_args, coord),
+                             lambda: fused_edge_layer_plain(*layer_args, coord)),
+    }
+    bound = bounds(table_args, layer_args)
+    kernels = []
+    for name, (kern, plain) in timings.items():
+        ms, plain_ms = time_ms(kern), time_ms(plain, reps=3, inner=3)
+        b_ms, b_by = bound[name]
+        log(f"# {name}: {ms:.4f} ms/launch (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by}), {launches[name] / (STEPS + 1):.2f} launches per forward")
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    log(f"# total {time.perf_counter() - t_start:.1f} s; card {smi}; "
+        f"{steps_s:.2f} denoising steps/s (dock CLI), {sampler_steps_s:.2f} (sampler)")
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

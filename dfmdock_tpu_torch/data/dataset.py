@@ -1,0 +1,34 @@
+"""npz complex -> padded model batch (mirrors `dfmdock_tpu/data/dataset.py`).
+
+Node features are [ESM2 1280 | one-hot 21]; res_id/asym_id run over the
+concatenated complex; nothing is cropped at inference.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dfmdock_tpu_torch.data.batching import pad_complex
+from dfmdock_tpu_torch.features.residues import sequence_to_onehot
+
+
+def complex_to_batch(d: dict, pad_to: int | None = None, use_esm: bool = True):
+    """d: dict with rec_x/rec_pos/rec_seq/lig_* -> padded batch dict (numpy)."""
+    rec_oh = sequence_to_onehot(d["rec_seq"])
+    lig_oh = sequence_to_onehot(d["lig_seq"])
+    if use_esm:
+        rec_x = np.concatenate([d["rec_x"], rec_oh], axis=-1)
+        lig_x = np.concatenate([d["lig_x"], lig_oh], axis=-1)
+    else:
+        rec_x, lig_x = rec_oh, lig_oh
+    b = pad_complex(rec_x, lig_x, d["rec_pos"], d["lig_pos"], pad_to=pad_to)
+    b["is_homomer"] = np.float32(d["rec_seq"] == d["lig_seq"])
+    return b
+
+
+def batch_to_tensors(batch: dict, device) -> dict:
+    """The model-facing tensors of a numpy batch, on `device`."""
+    out = {}
+    for k in ("x", "pos", "node_mask", "lig_mask", "res_id", "asym_id"):
+        out[k] = torch.from_numpy(np.asarray(batch[k])).to(device)
+    return out

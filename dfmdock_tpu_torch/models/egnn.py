@@ -1,0 +1,128 @@
+"""E(n)-equivariant graph convolution layers on [P, N, K] slot tensors.
+
+Mirrors `dfmdock_tpu/models/egnn.py`: every node owns K neighbour slots, so
+messages are [P, N, K, C] tensors and aggregation is a masked sum over K.
+Two forward paths share the parameters:
+
+- `egnn_apply`: the eager float32 formulation (`--exact`), against which
+  the kernels are held;
+- `egnn_apply_fused`: the inference path through `ops/fused_egcl`, which
+  reads the per-step edge table of `ops/edge_table`.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dfmdock_tpu_torch.features.sixd import gather_rows
+from dfmdock_tpu_torch.models.modules import GraphNorm
+from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer
+
+
+class EGCL(nn.Module):
+    """One E_GCL layer (reference egnn.py E_GCL); only the last layer of the
+    stack owns `coord_mlp` and moves coordinates."""
+
+    def __init__(self, node_dim: int, edge_dim: int, update_coords: bool):
+        super().__init__()
+        c = node_dim
+        self.edge_mlp = nn.ModuleDict({
+            "l0": nn.Linear(2 * c + 1 + edge_dim, c),
+            "l1": nn.Linear(c, c),
+        })
+        self.node_mlp = nn.ModuleDict({
+            "l0": nn.Linear(2 * c, c),
+            "gn": GraphNorm(c),
+            "l1": nn.Linear(c, c),
+        })
+        self.att_mlp = nn.ModuleDict({"l0": nn.Linear(c, 1)})
+        self.coord_mlp = (
+            nn.ModuleDict({"l0": nn.Linear(c, c), "l1": nn.Linear(c, 1, bias=False)})
+            if update_coords else None
+        )
+
+    def edge_weights(self):
+        """The first edge-MLP weight split by input rows ([in, out] each):
+        h_i, h_j, radial, edge_attr."""
+        c = self.node_mlp["l1"].weight.shape[0]
+        w0 = self.edge_mlp["l0"].weight.t()
+        return w0[:c], w0[c : 2 * c], w0[2 * c], w0[2 * c + 1 :]
+
+    def node_update(self, h, agg_m, node_mask):
+        o = self.node_mlp["l0"](torch.cat([h, agg_m], -1))
+        o = self.node_mlp["gn"](o, node_mask)
+        return h + self.node_mlp["l1"](F.silu(o))
+
+    def forward(self, h, coord, idx, edge_mask, edge_attr, node_mask, lig_mask,
+                *, normalize: bool, coord_clamp: float = 2.0):
+        """Eager E_GCL.  h [P, N, C], coord [P, N, 3], idx / edge_mask
+        [P, N, K], edge_attr [P, N, K, E], node_mask [N] bool, lig_mask [N]
+        float.  Returns (h', coord')."""
+        coord_diff = coord[..., :, None, :] - gather_rows(coord, idx.long())
+        radial = (coord_diff * coord_diff).sum(-1, keepdim=True)
+        if normalize:
+            coord_diff = coord_diff / (torch.sqrt(radial + 1e-8) + 1.0)
+
+        # the first Linear over concat[h_i, h_j, radial, e_attr], split by
+        # weight rows so the [.., 2C+1+E] concat never materializes
+        w_hi, w_hj, w_r, w_e = self.edge_weights()
+        pre = (
+            (h @ w_hi)[..., :, None, :]
+            + gather_rows(h @ w_hj, idx.long())
+            + radial * w_r
+            + edge_attr @ w_e
+            + self.edge_mlp["l0"].bias
+        )
+        m = F.silu(self.edge_mlp["l1"](F.silu(pre)))
+        m = m * torch.sigmoid(self.att_mlp["l0"](m))
+        m = m * edge_mask[..., None]
+
+        new_coord = coord
+        if self.coord_mlp is not None:
+            w = self.coord_mlp["l1"](F.silu(self.coord_mlp["l0"](m)))
+            w = w.clamp(-coord_clamp, coord_clamp)
+            trans = coord_diff * w * edge_mask[..., None]
+            count = edge_mask.sum(-1, keepdim=True).clamp(min=1.0)
+            new_coord = coord + (trans.sum(-2) / count) * lig_mask[:, None]
+        return self.node_update(h, m.sum(-2), node_mask), new_coord
+
+
+def egnn_apply(layers, h, coord, idx, edge_mask, edge_attr, node_mask, lig_mask, *,
+               normalize: bool):
+    for layer in layers:
+        h, coord = layer(h, coord, idx, edge_mask, edge_attr, node_mask, lig_mask,
+                         normalize=normalize)
+    return h, coord
+
+
+def egnn_apply_fused(layers, spatial_w, positional_w, h, coord, idx, edge_mask,
+                     ebin, egeo, node_mask, lig_mask):
+    """The EGCL stack over the fused edge pipeline.
+
+    spatial_w [100, E] and positional_w [66, E] are the embed tables; idx /
+    edge_mask the selected edges, ebin / egeo the step's edge table.
+    Inference only."""
+    for layer in layers:
+        w_hi, w_hj, w_r, w_e = layer.edge_weights()
+        a = h @ w_hi + layer.edge_mlp["l0"].bias
+        B = h @ w_hj
+        l1, att = layer.edge_mlp["l1"], layer.att_mlp["l0"]
+        coord_params = None
+        if layer.coord_mlp is not None:
+            c0, c1 = layer.coord_mlp["l0"], layer.coord_mlp["l1"]
+            coord_params = (c0.weight.t().contiguous(), c0.bias, c1.weight[0])
+        out = fused_edge_layer(
+            idx, edge_mask, ebin, egeo, a.contiguous(), B.contiguous(),
+            (spatial_w @ w_e).contiguous(), (positional_w @ w_e).contiguous(),
+            w_r.contiguous(), l1.weight.t().contiguous(), l1.bias,
+            att.weight[0], att.bias, coord_params,
+        )
+        if coord_params is None:
+            agg_m = out
+        else:
+            agg_m, trans_sum = out
+            count = edge_mask.sum(-1, keepdim=True).clamp(min=1.0)
+            coord = coord + (trans_sum / count) * lig_mask[:, None]
+        h = layer.node_update(h, agg_m, node_mask)
+    return h, coord

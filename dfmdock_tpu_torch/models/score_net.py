@@ -1,0 +1,182 @@
+"""ScoreNet: the mlsb-lineage score network, predict path, batched over poses.
+
+Mirrors `dfmdock_tpu/models/score_net.py` (`ScoreNet.apply(predict=True)`):
+poses ride a leading [P] dimension and share one padded complex (receptor
+rows, ligand rows, padding; `node_mask` marks valid rows, `lig_mask` valid
+ligand rows).  Per forward:
+
+  center on the ligand CA centroid -> CA distances -> select_edges ->
+  6 EGCL layers (last one moves ligand CAs) -> tr/rot scores via `_rescale`
+  [-> energy head over receptor x ligand pairs in row chunks, ires, clashes]
+
+With `cfg.use_pallas` the EGCL stack runs through the CUDA kernels
+(ops/edge_table, ops/fused_egcl); otherwise through the eager float32 path.
+
+Batch (tensors on the model's device): h0 [N, C] or x [N, F], node_mask [N]
+bool, lig_mask [N] f32, res_id / asym_id [N] int32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dfmdock_tpu_torch.config import ModelConfig
+from dfmdock_tpu_torch.data.batching import ENERGY_ROW_CHUNK
+from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES, relpos_bin_at
+from dfmdock_tpu_torch.features.sixd import (
+    SPATIAL_DIM,
+    pairwise_ca_dist,
+    sixd_bins_at,
+    spatial_embed_from_bins,
+)
+from dfmdock_tpu_torch.models.edges import select_edges
+from dfmdock_tpu_torch.models.egnn import EGCL, egnn_apply, egnn_apply_fused
+from dfmdock_tpu_torch.models.modules import LN_EPS, TimeEmbed, init_weights
+from dfmdock_tpu_torch.ops.edge_table import build_edge_table
+
+
+class ScaleMLP(nn.Module):
+    """score = unit(vec) * softplus(MLP([|vec|, t_emb]))."""
+
+    def __init__(self, inner_dim: int):
+        super().__init__()
+        self.l0 = nn.Linear(inner_dim + 1, inner_dim, bias=False)
+        self.ln = nn.LayerNorm(inner_dim, eps=LN_EPS)
+        self.l1 = nn.Linear(inner_dim, 1, bias=False)
+
+    def forward(self, vec: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
+        """vec [P, 1, 3], t_emb [1, inner] -> [P, 1, 3]."""
+        norm = torch.sqrt((vec * vec).sum(-1, keepdim=True) + 1e-24)
+        inp = torch.cat([norm, t_emb.expand(vec.shape[0], 1, -1)], -1)
+        y = self.l1(F.silu(self.ln(self.l0(inp))))
+        return vec / (norm + 1e-6) * F.softplus(y)
+
+
+class ScoreNet(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.use_pallas and cfg.select_kernel:
+            raise NotImplementedError("the select_topk kernel is not ported yet")
+        if cfg.use_pallas and not cfg.edge_table_kernel:
+            raise ValueError("the kernel path builds its edge table with the "
+                             "edge_table kernel: use_pallas needs edge_table_kernel")
+        self.cfg = c = cfg
+        self.single_embed = nn.Linear(c.lm_embed_dim, c.node_dim, bias=False)
+        # [bins, edge_dim] lookup tables == Linear(bins -> edge_dim) weights
+        self.spatial_embed = nn.Linear(SPATIAL_DIM, c.edge_dim, bias=False)
+        self.positional_embed = nn.Linear(NUM_RELPOS_CLASSES, c.edge_dim, bias=False)
+        self.egnn = nn.ModuleList(
+            EGCL(c.node_dim, c.edge_dim, update_coords=(i == c.depth - 1))
+            for i in range(c.depth)
+        )
+        self.to_energy = nn.ModuleDict({
+            "l0": nn.Linear(2 * c.node_dim, c.node_dim, bias=False),
+            "ln": nn.LayerNorm(c.node_dim, eps=LN_EPS),
+            "l1": nn.Linear(c.node_dim, 1, bias=False),
+        })
+        self.to_ires = nn.ModuleDict({
+            "l0": nn.Linear(c.node_dim, 2 * c.node_dim),
+            "l1": nn.Linear(2 * c.node_dim, 2 * c.node_dim),
+            "l2": nn.Linear(2 * c.node_dim, 1),
+        })
+        self.t_embed = TimeEmbed(c.inner_dim)
+        self.tr_scale = ScaleMLP(c.inner_dim)
+        self.rot_scale = ScaleMLP(c.inner_dim)
+
+    def init_weights(self, generator: torch.Generator):
+        init_weights(self, generator)
+        return self
+
+    def embed_nodes(self, x: torch.Tensor) -> torch.Tensor:
+        """h0 = single_embed(x); static across steps and poses, so the
+        sampler computes it once per complex and passes batch['h0']."""
+        return self.single_embed(x)
+
+    def forward(self, batch: dict, pos: torch.Tensor, t, *, generator=None,
+                gumbel=None, edges=None, scores_only: bool = False) -> dict:
+        """Predict-path forward.
+
+        pos [P, N, 3, 3]; t a float in [0, 1].  Edge sampling draws its
+        Gumbel noise from `generator`, or takes `gumbel` [P, N, N], or the
+        whole neighbour set `edges` = (idx, edge_mask) [P, N, K].
+
+        Returns tr_score / rot_score [P, 1, 3] and f [P, N, 3]; unless
+        `scores_only`, also energy [P], ires [P, N, 1], num_clashes [P]."""
+        c = self.cfg
+        node_mask, lig_mask = batch["node_mask"], batch["lig_mask"]
+        valid = node_mask.to(torch.float32)
+        lig_valid = lig_mask * valid
+        rec_valid = (1.0 - lig_mask) * valid
+        n_lig = lig_valid.sum().clamp(min=1.0)
+        p, n = pos.shape[:2]
+
+        if c.center_in_net:
+            center = (pos[..., 1, :] * lig_valid[:, None]).sum(-2) / n_lig
+            pos = pos - center[:, None, None, :]
+
+        h0 = batch["h0"] if "h0" in batch else self.embed_nodes(batch["x"])
+        h = h0.expand(p, n, h0.shape[-1])
+        ca = pos[..., 1, :]
+        dist = pairwise_ca_dist(pos)
+        if edges is None:
+            edges = select_edges(dist, node_mask, c.knn, c.sample_size,
+                                 generator=generator, gumbel=gumbel)
+        idx, edge_mask = edges
+        spatial_w = self.spatial_embed.weight.t()
+        positional_w = self.positional_embed.weight.t()
+
+        if c.use_pallas:
+            ebin, egeo = build_edge_table(idx, pos.contiguous(), batch["res_id"],
+                                          batch["asym_id"], normalize=c.normalize)
+            h, coord_out = egnn_apply_fused(
+                self.egnn, spatial_w, positional_w, h, ca, idx, edge_mask, ebin,
+                egeo, node_mask, lig_valid,
+            )
+        else:
+            rp = relpos_bin_at(batch["res_id"], batch["asym_id"], idx)
+            db, ob, tb, pb = sixd_bins_at(pos, idx)
+            edge_attr = (spatial_embed_from_bins(spatial_w, db, ob, tb, pb)
+                         + positional_w[rp.long()])
+            h, coord_out = egnn_apply(self.egnn, h, ca, idx, edge_mask, edge_attr,
+                                      node_mask, lig_valid, normalize=c.normalize)
+
+        # force from the coordinate update of ligand CAs -> tr/rot scores
+        f = (coord_out - ca) * lig_valid[:, None]
+        tr_pred = f.sum(-2, keepdim=True) / n_lig
+        rot_pred = torch.linalg.cross(ca, f, dim=-1).sum(-2, keepdim=True) / n_lig
+        t_emb = self.t_embed(torch.full((), float(t), device=pos.device))
+        out = {
+            "tr_score": self.tr_scale(tr_pred, t_emb),
+            "rot_score": self.rot_scale(rot_pred, t_emb),
+            "f": f,
+        }
+        if scores_only:
+            return out
+
+        pair_valid = rec_valid[:, None] * lig_valid[None, :]
+        out["energy"] = self._energy(h, pair_valid * (dist < c.cut_off))
+        out["ires"] = self._ires(h)
+        out["num_clashes"] = (pair_valid * (dist <= 3.0)).sum((-2, -1)).to(torch.int32)
+        return out
+
+    def _energy(self, h: torch.Tensor, pair_mask: torch.Tensor) -> torch.Tensor:
+        """Masked mean of MLP(concat[h_i, h_j]) over receptor x ligand pairs,
+        in row chunks so [P, N, N, C] never materializes.  h [P, N, C],
+        pair_mask [P, N, N] -> [P]."""
+        p, n, c = h.shape
+        w = self.to_energy["l0"].weight  # [C, 2C]: h_i / h_j halves
+        hr = h @ w[:, :c].t()
+        hl = h @ w[:, c:].t()
+        ln, l1 = self.to_energy["ln"], self.to_energy["l1"]
+        num = torch.zeros(p, device=h.device)
+        chunk = min(ENERGY_ROW_CHUNK, n)
+        for s in range(0, n, chunk):
+            pair = hr[:, s : s + chunk, None, :] + hl[:, None, :, :]
+            e = l1(F.silu(ln(pair))).squeeze(-1)  # [P, chunk, N]
+            num = num + (e * pair_mask[:, s : s + chunk]).sum((-2, -1))
+        return num / (pair_mask.sum((-2, -1)) + 1e-6)
+
+    def _ires(self, h: torch.Tensor) -> torch.Tensor:
+        p = self.to_ires
+        return p["l2"](F.silu(p["l1"](F.silu(p["l0"](h)))))

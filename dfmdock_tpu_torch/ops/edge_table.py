@@ -1,0 +1,104 @@
+"""Per-step edge table: the features every EGCL layer reads, one pass.
+
+Replaces the TPU kernel `dfmdock_tpu/ops/edge_table.py:build_edge_table`
+(kernel body `_kernel`).  For every selected edge (i, j = idx[p, i, k]) it
+gathers N/CA/virtual-CB, res_id and asym_id of both ends and computes
+
+- the trRosetta dist/omega/theta/phi bins (angle bins zeroed at >= 22 A or
+  i == j) and the AF2 relpos class (66-way);
+- the EGNN geometry: squared CA distance and the (normalized) coord-diff.
+
+Layout (free in the port; it is what `ops/fused_egcl.py` reads beside
+idx and edge_mask themselves):
+  ebin [P, N, K, EBIN_WIDTH] int32: dist/omega/theta/phi bin, relpos
+  egeo [P, N, K, EGEO_WIDTH] f32:   radial, coord-diff x/y/z
+
+`build_edge_table` launches the CUDA kernel (csrc/edge_table.cu) for CUDA
+tensors and runs `build_edge_table_plain` for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from dfmdock_tpu_torch.features.positional import relpos_bin_at
+from dfmdock_tpu_torch.features.sixd import (
+    ANGLE_BOUNDARIES,
+    DIST_BOUNDARIES,
+    PHI_BOUNDARIES,
+    sixd_bins_at,
+)
+from dfmdock_tpu_torch.ops import _build
+
+E_DB, E_OB, E_TB, E_PB, E_RP = range(5)
+EBIN_WIDTH = 5
+G_RAD, G_CD = 0, 1  # G_CD..G_CD+2 = coord-diff (i - j) x/y/z
+EGEO_WIDTH = 4
+
+
+def build_edge_table_plain(idx, pos, res_id, asym_id, *, normalize: bool):
+    """Plain PyTorch version: the features as the eager path computes them.
+
+    idx [P, N, K] int32, pos [P, N, 3, 3] f32, res_id / asym_id [N] int32
+    -> (ebin, egeo).  Masked edges get finite values like any other."""
+    (db, ob, tb, pb), ca_j = sixd_bins_at(pos, idx, return_ca_j=True)
+    rp = relpos_bin_at(res_id, asym_id, idx)
+    cdiff = pos[..., :, None, 1, :] - ca_j
+    radial = (cdiff * cdiff).sum(-1)
+    if normalize:
+        cdiff = cdiff / (torch.sqrt(radial + 1e-8) + 1.0)[..., None]
+    ebin = torch.stack([db, ob, tb, pb, rp], -1)
+    egeo = torch.cat([radial[..., None], cdiff], -1)
+    return ebin, egeo
+
+
+_BOUNDS: dict = {}
+
+
+def _bounds(device) -> torch.Tensor:
+    """dist | angle | phi boundaries as one f32 tensor on `device`."""
+    if device not in _BOUNDS:
+        _BOUNDS[device] = torch.tensor(
+            DIST_BOUNDARIES + ANGLE_BOUNDARIES + PHI_BOUNDARIES,
+            dtype=torch.float32, device=device,
+        )
+    return _BOUNDS[device]
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("edge_table")
+    fn = lib.edge_table_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_edge_table(idx, pos, res_id, asym_id, *, normalize: bool):
+    """The edge table of the selected edges; see the module docstring."""
+    if pos.device.type == "cpu":
+        return build_edge_table_plain(idx, pos, res_id, asym_id, normalize=normalize)
+    if pos.device.type != "cuda":
+        raise ValueError(f"build_edge_table: no kernel for device {pos.device}")
+    p, n, k = idx.shape
+    dev = pos.device
+    _build.require(idx, "idx", torch.int32, (p, n, k), dev)
+    _build.require(pos, "pos", torch.float32, (p, n, 3, 3), dev)
+    _build.require(res_id, "res_id", torch.int32, (n,), dev)
+    _build.require(asym_id, "asym_id", torch.int32, (n,), dev)
+    ebin = torch.empty((p, n, k, EBIN_WIDTH), dtype=torch.int32, device=dev)
+    egeo = torch.empty((p, n, k, EGEO_WIDTH), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib()(
+            idx.data_ptr(), pos.data_ptr(), res_id.data_ptr(),
+            asym_id.data_ptr(), _bounds(dev).data_ptr(), p, n, k, int(normalize),
+            ebin.data_ptr(), egeo.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "edge_table")
+    build_edge_table.launches += 1
+    return ebin, egeo
+
+
+build_edge_table.launches = 0

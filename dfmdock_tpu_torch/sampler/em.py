@@ -1,0 +1,147 @@
+"""Euler-Maruyama reverse-SDE pose sampler, poses batched on a leading axis.
+
+Mirrors `dfmdock_tpu/sampler/em.py` (EMSampler.sample / sample_one): a random
+start pose per pose, `num_steps` reverse steps that each call the ScoreNet
+with `scores_only`, one full forward at the final pose, ranking by energy.
+Randomness comes from one torch.Generator; `init` and `noise` inject the
+start pose and the step noise instead.
+"""
+from __future__ import annotations
+
+import torch
+
+from dfmdock_tpu_torch.config import SamplerConfig
+from dfmdock_tpu_torch.diffusion import R3Diffuser, SO3Diffuser
+from dfmdock_tpu_torch.geom import (
+    axis_angle_to_matrix,
+    compose_axis_angle,
+    matrix_to_axis_angle,
+    random_rotation_matrix,
+)
+
+
+def _lig_center(pos, lig_mask, mode: str):
+    """Ligand centroid [..., 3] of pos [..., N, 3, 3]: 'ca' = CA mean,
+    'bb' = all-backbone-atom mean."""
+    n = lig_mask.sum().clamp(min=1.0)
+    if mode == "bb":
+        return (pos * lig_mask[:, None, None]).sum((-3, -2)) / (3.0 * n)
+    return (pos[..., 1, :] * lig_mask[:, None]).sum(-2) / n
+
+
+def _rotate_ligand(pos, lig_mask, rot, center, shift):
+    """Rows with lig_mask: (x - center) @ rot^T + center + shift.
+    pos [P|1, N, 3, 3], rot [P, 3, 3], center / shift [P|1, 3]."""
+    x = (pos - center[:, None, None, :]).expand(rot.shape[0], -1, -1, -1)
+    new_lig = torch.einsum("pnad,ped->pnae", x, rot) + (center + shift)[:, None, None, :]
+    return torch.where(lig_mask[:, None, None] > 0, new_lig, pos)
+
+
+def randomize_pose(generator, pos, lig_mask, node_mask, cfg: SamplerConfig,
+                   num_samples: int):
+    """Random start poses: uniform SO(3) rotation of the ligand about its
+    centroid + N(0, init_tr_sigma) translation to near the receptor centroid.
+
+    pos [N, 3, 3] -> (pos [P, N, 3, 3], tr_update [P, 1, 3], rot_update [P, 1, 3])."""
+    valid = node_mask.to(torch.float32)
+    lig = lig_mask * valid
+    rec = (1.0 - lig_mask) * valid
+    c2 = _lig_center(pos, lig, cfg.center_mode)
+    c1 = _lig_center(pos, rec, cfg.center_mode)
+    rot = random_rotation_matrix(generator, (num_samples,), device=pos.device)
+    noise = torch.randn((num_samples, 1, 3), generator=generator, device=pos.device)
+    tr_update = noise * cfg.init_tr_sigma - c2 + c1
+    new = _rotate_ligand(pos[None], lig, rot, c2[None], tr_update[:, 0])
+    return new, tr_update, matrix_to_axis_angle(rot)[:, None, :]
+
+
+def modify_coords(pos, lig_mask, rot_aa, tr, mode: str = "ca"):
+    """Rigid update of ligand rows about the ligand centroid.
+    pos [P, N, 3, 3], rot_aa / tr [P, 1, 3]."""
+    center = _lig_center(pos, lig_mask, mode)
+    return _rotate_ligand(pos, lig_mask, axis_angle_to_matrix(rot_aa[:, 0]), center, tr[:, 0])
+
+
+class EMSampler:
+    """Reverse-SDE docking sampler over a ScoreNet."""
+
+    def __init__(self, net, r3: R3Diffuser, so3: SO3Diffuser, cfg: SamplerConfig):
+        if cfg.integrator != "em":
+            raise NotImplementedError(f"integrator {cfg.integrator!r} is not ported yet")
+        if cfg.use_clash_force:
+            raise NotImplementedError("the clash force is not ported yet")
+        self.net = net
+        self.r3 = r3
+        self.so3 = so3
+        self.cfg = cfg
+
+    def schedule(self):
+        """(ts, dt, tr_noise_scales, rot_noise_scales), python floats."""
+        cfg = self.cfg
+        ts = torch.linspace(1.0, cfg.eps, cfg.num_steps, dtype=torch.float32).tolist()
+        dt = ts[0] - ts[1] if len(ts) > 1 else 0.0  # one step: JAX's clamped index
+        if cfg.noise_annealing:
+            return ts, dt, list(ts), list(ts)
+        tr_ns = [cfg.tr_noise_scale] * (cfg.num_steps - 1) + [0.0]
+        rot_ns = [cfg.rot_noise_scale] * (cfg.num_steps - 1) + [0.0]
+        return ts, dt, tr_ns, rot_ns
+
+    @torch.no_grad()
+    def sample(self, batch: dict, num_samples: int, generator: torch.Generator,
+               init=None, noise=None) -> dict:
+        """Dock `num_samples` poses of one padded complex.
+
+        init: optional (pos0 [P, N, 3, 3], tr_update [P, 1, 3], rot_update
+        [P, 1, 3]) in place of the random start.  noise: optional (z_rot,
+        z_tr), each [num_steps, P, 1, 3] standard normals, in place of the
+        generator's step noise.
+
+        Returns pos [P, N, 3, 3], tr_update / rot_update / tr_score /
+        rot_score [P, 1, 3], energy [P], num_clashes [P]."""
+        cfg = self.cfg
+        ts, dt, tr_ns, rot_ns = self.schedule()
+        batch = dict(batch)
+        if "h0" not in batch:
+            batch["h0"] = self.net.embed_nodes(batch["x"])
+        lig_mask = batch["lig_mask"]
+        if init is None:
+            pos, tr_u, rot_u = randomize_pose(generator, batch["pos"], lig_mask,
+                                              batch["node_mask"], cfg, num_samples)
+        else:
+            pos, tr_u, rot_u = init
+        shape = (num_samples, 1, 3)
+        zeros = torch.zeros(shape, device=pos.device)
+
+        def normal(s, which):
+            if cfg.ode:
+                return None
+            if noise is not None:
+                return noise[which][s]
+            return torch.randn(shape, generator=generator, device=pos.device)
+
+        for s, t in enumerate(ts):
+            out = self.net(batch, pos, t, generator=generator, scores_only=True)
+            z_rot, z_tr = normal(s, 0), normal(s, 1)
+            rot = (self.so3.reverse_step(out["rot_score"], t, dt, rot_ns[s], cfg.ode, z_rot)
+                   if cfg.perturb_rot else zeros)
+            tr = (self.r3.reverse_step(out["tr_score"], t, dt, tr_ns[s], cfg.ode, z_tr)
+                  if cfg.perturb_tr else zeros)
+            pos = modify_coords(pos, lig_mask, rot, tr, cfg.center_mode)
+            tr_u = tr_u + tr
+            rot_u = compose_axis_angle(rot_u, rot)
+
+        out = self.net(batch, pos, ts[-1], generator=generator)
+        return {
+            "pos": pos,
+            "tr_update": tr_u,
+            "rot_update": rot_u,
+            "energy": out["energy"],
+            "num_clashes": out["num_clashes"],
+            "tr_score": out["tr_score"],
+            "rot_score": out["rot_score"],
+        }
+
+    @staticmethod
+    def rank_by_energy(results) -> int:
+        """Index of the minimum-energy pose."""
+        return int(torch.argmin(results["energy"]))

@@ -1,0 +1,141 @@
+"""The port's plain fused EGCL (ops/fused_egcl.fused_edge_layer_plain, what
+the CUDA kernel is held against on the card) vs the JAX package:
+
+- against the Pallas fused_edge_layer in interpret mode, which runs its
+  products in bf16: bf16 tolerances as tests/test_pallas_ops.py states them
+  (rtol 5e-2, atol 2e-3, here relative to the output's magnitude);
+- through the port's fused EGCL layer against the JAX eager f32 egcl_apply
+  on the same parameters and bins: rtol 1e-4 (f32 on both sides)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_parity as tp
+from dfmdock_tpu.features.sixd import pairwise_ca_dist, sixd_bins_at, spatial_embed_from_bins
+from dfmdock_tpu.features.positional import relpos_bin_at
+from dfmdock_tpu.models.edges import select_edges
+from dfmdock_tpu.models.egnn import build_edge_table_xla, egcl_apply, egcl_init
+from dfmdock_tpu.ops import fused_egcl as jf
+from dfmdock_tpu_torch.models.egnn import EGCL, egnn_apply_fused
+from dfmdock_tpu_torch.ops import edge_table as et
+from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, fused_edge_layer_plain
+from dfmdock_tpu_torch.params import to_state_dict
+
+C, E_DIM = 32, 16
+
+
+def port_table(tab, n, k):
+    """The JAX [16, N*K] edge table as the port's (idx, edge_mask, ebin,
+    egeo), so both sides see identical edges and bins."""
+    ebin = np.zeros((n * k, et.EBIN_WIDTH), np.int32)
+    for r, col in ((jf.R_DB, et.E_DB), (jf.R_OB, et.E_OB), (jf.R_TB, et.E_TB),
+                   (jf.R_PB, et.E_PB), (jf.R_RP, et.E_RP)):
+        ebin[:, col] = np.rint(tab[r]).astype(np.int32)
+    egeo = np.stack([tab[jf.R_RAD]] + [tab[jf.R_CD + d] for d in range(3)], -1)
+    idx = np.rint(tab[jf.R_IDX]).astype(np.int32).reshape(1, n, k)
+    mask = np.array(tab[jf.R_MASK], np.float32).reshape(1, n, k)
+    return (torch.from_numpy(idx), torch.from_numpy(mask),
+            torch.from_numpy(ebin.reshape(1, n, k, -1)),
+            torch.from_numpy(np.ascontiguousarray(egeo, np.float32).reshape(1, n, k, 4)))
+
+
+def graph(n_rec, n_lig, pad_to, seed):
+    b = tp.padded(n_rec, n_lig, feat=8, seed=seed, pad_to=pad_to)
+    pos = jnp.asarray(b["pos"])
+    idx, mask = select_edges(jax.random.PRNGKey(seed), pairwise_ca_dist(pos),
+                             jnp.asarray(b["node_mask"]), knn=20, sample_size=40)
+    tab = build_edge_table_xla(idx, mask, pos, jnp.asarray(b["res_id"]),
+                               jnp.asarray(b["asym_id"]), normalize=True)
+    return b, pos, idx, mask, np.asarray(tab)
+
+
+@pytest.mark.parametrize("coord", [False, True])
+@pytest.mark.parametrize("n_rec,n_lig,pad_to,seed", [(20, 12, 64, 3), (50, 40, 128, 5)])
+def test_plain_matches_jax_pallas_kernel(coord, n_rec, n_lig, pad_to, seed):
+    """Inputs as the model makes them: a layer of egcl_init weights
+    (N(0, 0.02)) applied to unit-normal node features.  The raw squared
+    edge length enters the edge MLP, so agg runs to ~1e2 here: the bf16
+    atol is taken relative to the output's magnitude (2e-3 * max |ref|)."""
+    b, pos, idx, mask, tab = graph(n_rec, n_lig, pad_to, seed)
+    n, k = idx.shape
+    key = jax.random.PRNGKey(seed)
+    p = egcl_init(key, C, E_DIM, coord)
+    h = jax.random.normal(jax.random.fold_in(key, 1), (n, C))
+    w0 = p["edge_mlp"]["l0"]["w"]
+    a = h @ w0[:C] + p["edge_mlp"]["l0"]["b"]
+    B = h @ w0[C : 2 * C]
+    w_e = w0[2 * C + 1 :]
+    sp_w = jax.random.normal(jax.random.fold_in(key, 2), (100, E_DIM)) * 0.02
+    rp_w = jax.random.normal(jax.random.fold_in(key, 3), (66, E_DIM)) * 0.02
+    t_sp = (sp_w @ w_e).astype(jnp.bfloat16)
+    t_p = (rp_w @ w_e).astype(jnp.bfloat16)
+    l1, att = p["edge_mlp"]["l1"], p["att_mlp"]["l0"]
+    wc = ((p["coord_mlp"]["l0"]["w"], p["coord_mlp"]["l0"]["b"],
+           p["coord_mlp"]["l1"]["w"][:, 0]) if coord else None)
+    out_j = jf.fused_edge_layer(
+        jnp.asarray(tab), a, B, t_sp, t_p, w0[2 * C][None], l1["w"], l1["b"][None],
+        att["w"][:, 0][None], att["b"][None], k=k,
+        coord_params=(wc[0], wc[1][None], wc[2][None]) if coord else None)
+    T = lambda x: torch.from_numpy(np.array(x, np.float32))
+    out_p = fused_edge_layer(*port_table(tab, n, k), T(a)[None], T(B)[None], T(t_sp),
+                             T(t_p), T(w0[2 * C]), T(l1["w"]), T(l1["b"]),
+                             T(att["w"][:, 0]), T(att["b"]),
+                             tuple(map(T, wc)) if coord else None)
+    if not coord:
+        out_j, out_p = (out_j,), (out_p,)
+    for j, o in zip(out_j, out_p):
+        scale = np.abs(np.asarray(j)).max()
+        assert scale > 1e-4
+        np.testing.assert_allclose(o[0].numpy(), np.asarray(j), rtol=5e-2,
+                                   atol=2e-3 * scale)
+
+
+@pytest.mark.parametrize("update_coords", [False, True])
+def test_fused_layer_matches_jax_eager_f32(update_coords):
+    b, pos, idx, mask, tab = graph(40, 30, 128, 11)
+    n, k = idx.shape
+    p = egcl_init(jax.random.PRNGKey(1), C, E_DIM, update_coords)
+    sp_w = jax.random.normal(jax.random.PRNGKey(2), (100, E_DIM)) * 0.3
+    rp_w = jax.random.normal(jax.random.PRNGKey(3), (66, E_DIM)) * 0.3
+    h = jax.random.normal(jax.random.PRNGKey(4), (n, C))
+    ca = pos[:, 1, :]
+    lig = jnp.asarray(b["lig_mask"])
+    node_mask = jnp.asarray(b["node_mask"])
+    bins = sixd_bins_at(pos, idx)
+    edge_attr = (spatial_embed_from_bins(sp_w, *bins)
+                 + rp_w[relpos_bin_at(jnp.asarray(b["res_id"]), jnp.asarray(b["asym_id"]), idx)])
+    h_j, x_j = egcl_apply(p, h, ca, idx, mask, edge_attr, node_mask, lig,
+                          normalize=True, update_coords=update_coords)
+
+    layer = EGCL(C, E_DIM, update_coords)
+    layer.load_state_dict(to_state_dict(tp.jax_flat(p)))
+    T = lambda x: torch.from_numpy(np.array(x))
+    with torch.no_grad():
+        h_p, x_p = egnn_apply_fused([layer], T(sp_w), T(rp_w), T(h)[None], T(ca)[None],
+                                    *port_table(tab, n, k), T(node_mask), T(lig))
+    tp.assert_close(h_p[0].numpy(), h_j, 1e-4, "h")
+    tp.assert_close(x_p[0].numpy() - np.asarray(ca), np.asarray(x_j - ca), 1e-4, "coord update")
+    if update_coords:
+        assert np.abs(np.asarray(x_j - ca)).max() > 0
+
+
+def test_masked_edges_drop_by_selection():
+    """A NaN in a masked edge's geometry must not reach the sums."""
+    b, pos, idx, mask, tab = graph(20, 12, 64, 3)
+    n, k = idx.shape
+    idx_t, mask_t, ebin, egeo = port_table(tab, n, k)
+    masked = mask_t == 0
+    assert masked.any()
+    poisoned = egeo.clone()
+    poisoned[masked] = float("nan")
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g) * 0.2
+    args = (r(1, n, C), r(1, n, C), r(100, C), r(66, C), r(C), r(C, C), r(C), r(C), r(1))
+    coord = (r(C, C), r(C), r(C))
+    ref = fused_edge_layer_plain(idx_t, mask_t, ebin, egeo, *args, coord)
+    out = fused_edge_layer_plain(idx_t, mask_t, ebin, poisoned, *args, coord)
+    for o, rf in zip(out, ref):
+        assert torch.isfinite(o).all()
+        torch.testing.assert_close(o, rf, rtol=0, atol=0)

@@ -1,4 +1,4 @@
-"""Drive dfmdock_tpu_torch's main path on one CUDA card and check its kernels.
+"""Drive dfmdock_tpu_torch's main paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -8,19 +8,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at the dock path's shapes (P=16 poses of DB5 1AVX padded to
      N=448, K=60, C=256; three seeds) and on a small masked graph (N=64,
-     40 valid nodes);
+     40 valid nodes): the edge table, its bins-only mode (edge_bins, also
+     bit-equal to the table's bins), edge selection (select_topk, exact,
+     with a forced-tie case), the EGCL layers and the pair energy head
+     (fused_energy, with one all-masked pose);
   4. ScoreNet parity: the forward through the kernels (card) against the
-     forward through the plain versions (CPU), full width, seeded weights,
-     t in {0.1, 0.5, 0.9};
+     forward through the plain versions (CPU), full width, seeded weights:
+     fast() at t in {0.1, 0.5, 0.9}, fast(select_kernel=True) with the same
+     injected Gumbel noise and fast(edge_table_kernel=False), full forwards
+     (energy through fused_energy);
   5. dock: the dock CLI in-process on 1AVX, 16 poses x 40 steps, after a
      warm-up run; steps/s, each kernel's time, launches and bound;
   6. sampler: denoising steps/s over EMSampler.sample alone (the same 16
      poses x 40 steps, no model build, file I/O or DockQ), three runs;
   7. profile: torch.profiler over a 10-step sample of the same complex; the
      device's busy share, the kernels that take its time, and each port
-     kernel's device time per launch.
-The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels.  Without a CUDA card the script exits non-zero and prints no result.
+     kernel's device time per launch;
+  8. ranking dock: the dock CLI with --rank-by reranker (1 + 5 t x 4 draws
+     = 21 fused_energy launches) and with --energy-draws 4; the inputs of
+     the reranker run's first fused_energy call (its final poses) are kept,
+     and the kernel line checks, times and bounds fused_energy on them;
+  9. sweep: the sweep CLI over 1AVX, then --resume over 1AVX and 7CEI, 16
+     poses x 40 steps each; wall per complex and the rows written;
+ 10. kernel routes: 40-step samples of 16 poses under one generator seed
+     through fast(), fast(select_kernel=True) and fast(edge_table_kernel=
+     False); where the select route's trajectory first leaves the torch.topk
+     route's (a finding, not a gate).
+Each main path (phases 5, 8, 9 and the routes of 10) runs with the launch
+counts set to 0 just before it and read just after; a kernel of the path
+that did not launch fails the run.  The last line is {"ok": true,
+"device": {...}}; the line before it lists the kernels.  Without a CUDA card
+the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -38,7 +56,7 @@ import time
 import numpy as np
 import torch
 
-from dfmdock_tpu_torch.cli import dock
+from dfmdock_tpu_torch.cli import dock, sweep
 from dfmdock_tpu_torch.cli.common import build_sampler, load_model
 from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
 from dfmdock_tpu_torch.data.convert import load_npz_complex
@@ -52,7 +70,7 @@ from dfmdock_tpu_torch.features.sixd import (
     sixd_values_at,
 )
 from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
-from dfmdock_tpu_torch.models.edges import select_edges
+from dfmdock_tpu_torch.models.edges import sample_gumbel, select_edges, select_y
 from dfmdock_tpu_torch.ops import _build
 from dfmdock_tpu_torch.ops.edge_table import (
     E_DB,
@@ -64,8 +82,12 @@ from dfmdock_tpu_torch.ops.edge_table import (
     EGEO_WIDTH,
     build_edge_table,
     build_edge_table_plain,
+    edge_bins,
+    edge_bins_plain,
 )
+from dfmdock_tpu_torch.ops.energy_head import fused_energy, fused_energy_plain
 from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, fused_edge_layer_plain
+from dfmdock_tpu_torch.ops.select_topk import select_topk, select_topk_plain
 from dfmdock_tpu_torch.sampler.em import randomize_pose
 
 NPZ = os.path.join("data", "db5_npz", "1AVX.npz")
@@ -93,8 +115,14 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 # f32 operations per edge in csrc/edge_table.cu, counted from the source:
 # two virtual CBs (2 x 24), two dihedrals (2 x 62), the planar angle (22),
-# distance and coord-diff (18), 96 boundary compares.
+# distance and coord-diff (18), 96 boundary compares.  The bins-only mode
+# skips the coord-diff's normalisation (a sqrt, two adds, three divides).
 EDGE_TABLE_OPS_PER_EDGE = 308
+EDGE_BINS_OPS_PER_EDGE = 302
+# f32 operations per channel of one kept pair in csrc/energy_head.cu: the
+# add, the mean's add, the centring and the variance's FMA (3), the affine
+# normalisation (3), silu's exp, add and divide (3), the w2 FMA (2).
+ENERGY_OPS_PER_CHANNEL = 13
 SOURCES = {
     "edge_table": ("dfmdock_tpu_torch/csrc/edge_table.cu",
                    "dfmdock_tpu/ops/edge_table.py:218"),
@@ -102,7 +130,23 @@ SOURCES = {
                    "dfmdock_tpu/ops/fused_egcl.py:216"),
     "fused_egcl_coord": ("dfmdock_tpu_torch/csrc/fused_egcl.cu",
                          "dfmdock_tpu/ops/fused_egcl.py:226"),
+    "fused_energy": ("dfmdock_tpu_torch/csrc/energy_head.cu",
+                     "dfmdock_tpu/ops/energy_head.py:29"),
+    "select_topk": ("dfmdock_tpu_torch/csrc/select_topk.cu",
+                    "dfmdock_tpu/ops/select_topk.py:76"),
+    "edge_bins": ("dfmdock_tpu_torch/csrc/edge_table.cu",
+                  "dfmdock_tpu/ops/edge_bins.py:74"),
 }
+BUILD = ("edge_table", "fused_egcl", "energy_head", "select_topk")
+# the kernels each main path must launch
+DOCK_KERNELS = ("edge_table", "fused_egcl", "fused_egcl_coord", "fused_energy")
+ROUTE_KERNELS = {
+    "topk": DOCK_KERNELS,
+    "select": DOCK_KERNELS + ("select_topk",),
+    "bins": ("edge_bins", "fused_egcl", "fused_egcl_coord", "fused_energy"),
+}
+RERANK_T, RERANK_DRAWS, ENERGY_DRAWS = 5, 4, 4
+SWEEP_IDS = ("1AVX", "7CEI")
 
 
 def log(msg):
@@ -134,16 +178,58 @@ def time_ms(fn, reps=5, inner=10):
     return statistics.median(times)
 
 
+def device_ms(fn, calls=10):
+    """Device time per call of `fn` (every kernel it launches, without the
+    host's work) from torch.profiler over `calls` calls, after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
+        e, "self_cuda_time_total", 0)
+    total = sum(dev_us(e) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / calls if total else float("nan")
+
+
 def reset_counts():
     build_edge_table.launches = 0
     fused_edge_layer.launches = 0
     fused_edge_layer.coord_launches = 0
+    fused_energy.launches = 0
+    select_topk.launches = 0
+    edge_bins.launches = 0
 
 
 def counts():
     return {"edge_table": build_edge_table.launches,
             "fused_egcl": fused_edge_layer.launches,
-            "fused_egcl_coord": fused_edge_layer.coord_launches}
+            "fused_egcl_coord": fused_edge_layer.coord_launches,
+            "fused_energy": fused_energy.launches,
+            "select_topk": select_topk.launches,
+            "edge_bins": edge_bins.launches}
+
+
+def run_path(name, kernels, fn):
+    """Run one main path with the launch counts set to 0 just before it and
+    read just after; fail if one of `kernels` did not launch.  Returns
+    (fn's result, wall seconds, counts)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    for k in kernels:
+        if launches[k] == 0:
+            raise AssertionError(f"the {name} run launched no {k} kernel")
+    log(f"# launches in the {name} run: {json.dumps(launches)}")
+    return result, wall, launches
 
 
 def device_phase():
@@ -209,6 +295,21 @@ def fused_inputs(idx, edge_mask, ebin, egeo, c, seed, device):
     return args, coord
 
 
+def energy_inputs(batch, pos, c, seed, device):
+    """Seeded hr, hl [P, N, C], the receptor x ligand pair mask within 20 A
+    of these poses (the last pose's all masked), and a LayerNorm affine and
+    w2 off their init values."""
+    g = torch.Generator().manual_seed(seed)
+    p, n = pos.shape[:2]
+    r = lambda *s, scale=1.0, shift=0.0: (torch.randn(s, generator=g) * scale + shift).to(device)
+    valid = batch["node_mask"].to(torch.float32)
+    lig = batch["lig_mask"] * valid
+    pair = ((valid - lig)[:, None] * lig[None, :]) * (pairwise_ca_dist(pos) < 20.0)
+    pair[-1] = 0.0
+    return (r(p, n, c), r(p, n, c), pair.contiguous(), r(c, scale=0.3, shift=1.0),
+            r(c, scale=0.1), r(c, scale=0.1))
+
+
 def kernel_phase(raw, device):
     """Every kernel against its plain version on the card."""
     errs = {name: 0.0 for name in SOURCES}
@@ -227,6 +328,7 @@ def kernel_phase(raw, device):
         args = (idx, pos, batch["res_id"], batch["asym_id"])
         ebin_k, egeo_k = build_edge_table(*args, normalize=True)
         ebin_p, egeo_p = build_edge_table_plain(*args, normalize=True)
+        ebin_b = edge_bins(*args)
         torch.cuda.synchronize()
         valid = edge_mask > 0.5
         ties, masked = check_bins(ebin_k, ebin_p, pos, idx, valid)
@@ -239,6 +341,54 @@ def kernel_phase(raw, device):
         log(f"# edge_table P={num_poses} N={n_pad} seed={seed}: valid edges "
             f"{int(valid.sum())}/{valid.numel()}, bin ties {ties}, masked-edge bin "
             f"diffs {masked}, geometry max abs {abs_g:.3e} rel {rel_g:.3e}")
+        # bins-only mode: the same bits as the table's bins on every edge,
+        # and the plain version's except at boundary ties
+        errs["edge_bins"] = max(errs["edge_bins"],
+                                float((ebin_b - ebin_k).abs().max()))
+        if not torch.equal(ebin_b, ebin_k):
+            raise AssertionError(f"edge_bins differs from build_edge_table's ebin on "
+                                 f"{int((ebin_b != ebin_k).sum())} entries")
+        ties_b, masked_b = check_bins(ebin_b, ebin_p, pos, idx, valid)
+        log(f"# edge_bins P={num_poses} N={n_pad} seed={seed}: equal to the table's "
+            f"ebin; against plain: bin ties {ties_b}, masked-edge bin diffs {masked_b}")
+
+        # edge selection on these poses with a fresh Gumbel draw: exact
+        dist = pairwise_ca_dist(pos)
+        y = select_y(dist, batch["node_mask"], sample_gumbel(
+            dist.shape, torch.Generator(device).manual_seed(100 + seed), device))
+        sel_cases = [("", dist, y)]
+        if cx is None and seed == 0:  # distances rounded to 4 A: ties
+            tied = torch.round(dist / 4.0) * 4.0
+            sel_cases.append((" ties", tied, select_y(tied, batch["node_mask"], 0.0 * y)))
+        for tag, d, yy in sel_cases:
+            idx_s, em_s = select_topk(d, yy, batch["node_mask"])
+            idx_sp, em_sp = select_topk_plain(d, yy, batch["node_mask"])
+            torch.cuda.synchronize()
+            errs["select_topk"] = max(errs["select_topk"],
+                                      float((idx_s - idx_sp).abs().max()),
+                                      float((em_s - em_sp).abs().max()))
+            if not (torch.equal(idx_s, idx_sp) and torch.equal(em_s, em_sp)):
+                raise AssertionError(
+                    f"select_topk{tag} differs from its plain version: "
+                    f"{int((idx_s != idx_sp).sum())} idx, {int((em_s != em_sp).sum())} mask")
+            log(f"# select_topk{tag} P={num_poses} N={n_pad} seed={seed}: idx and "
+                f"edge_mask equal to plain ({int(em_s.sum())} valid edges)")
+
+        e_args = energy_inputs(batch, pos, 256, seed, device)
+        e_k = fused_energy(*e_args)
+        e_k2 = fused_energy(*e_args)
+        e_p = fused_energy_plain(*e_args)
+        torch.cuda.synchronize()
+        a_err, r_err, _ = max_errs(e_k, e_p)
+        if r_err > F32_REL or not torch.isfinite(e_k).all():
+            raise AssertionError(f"fused_energy: rel err {r_err:.3e} > {F32_REL}")
+        if float(e_k[-1]) != 0.0 or not torch.equal(e_k, e_k2):
+            raise AssertionError("fused_energy: the all-masked pose is not 0, or two "
+                                 "launches differ")
+        errs["fused_energy"] = max(errs["fused_energy"], a_err)
+        log(f"# fused_energy P={num_poses} N={n_pad} seed={seed}: kept pairs "
+            f"{int(e_args[2].sum())}, max abs {a_err:.3e} rel {r_err:.3e}, all-masked "
+            f"pose 0, two launches bit-equal")
 
         layer_args, coord = fused_inputs(idx, edge_mask, ebin_k, egeo_k, 256, seed, device)
         agg_k = fused_edge_layer(*layer_args)
@@ -259,16 +409,17 @@ def kernel_phase(raw, device):
             log(f"# {name} P={num_poses} N={n_pad} seed={seed}: max abs {a_err:.3e} "
                 f"rel {r_err:.3e}")
         if main_inputs is None:
-            main_inputs = (args, layer_args, coord)
+            main_inputs = {"table": args, "layer": layer_args, "coord": coord,
+                           "select": (dist, y, batch["node_mask"])}
     return errs, main_inputs
 
 
 def parity_phase(raw, device):
     """ScoreNet through the kernels (card) vs through the plain versions
-    (CPU), same seeded weights, same edges."""
-    cfg = DFMDockConfig(model=ModelConfig.fast())
-    net_k = load_model(None, cfg, device, seed=0)
-    net_p = load_model(None, cfg, torch.device("cpu"), seed=0)
+    (CPU), same seeded weights, full forwards: fast() and
+    fast(edge_table_kernel=False) on the same injected edges,
+    fast(select_kernel=True) selecting its own edges from the same injected
+    Gumbel noise."""
     batch, pos, idx, edge_mask = edge_inputs(raw, N_PAD, 2, 7, device)
     native = batch["pos"][None]
     pos = torch.cat([native, pos[:1]]).contiguous()  # native + one random pose
@@ -276,21 +427,41 @@ def parity_phase(raw, device):
                                  generator=torch.Generator(device).manual_seed(8))
     idx = torch.cat([idx_n, idx[:1]]).contiguous()
     edge_mask = torch.cat([mask_n, edge_mask[:1]]).contiguous()
+    n = pos.shape[1]
+    gumbel = sample_gumbel((2, n, n), torch.Generator(device).manual_seed(9), device)
     cpu = lambda d: {k: v.cpu() for k, v in d.items()}
-    with torch.no_grad():
-        for t in (0.1, 0.5, 0.9):
-            o_k = net_k(batch, pos, t, edges=(idx, edge_mask))
-            o_p = net_p(cpu(batch), pos.cpu(), t, edges=(idx.cpu(), edge_mask.cpu()))
-            for name in PARITY_TOL:
-                a_err, r_err, scale = max_errs(o_k[name].cpu(), o_p[name])
-                ok = (r_err < PARITY_TOL[name]
-                      or a_err < PARITY_ABS[name] < scale) and r_err <= F32_PARITY_REL
-                log(f"# parity t={t} {name}: max abs {a_err:.3e} rel {r_err:.3e} "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"ScoreNet parity failed: {name} at t={t}")
-            if not torch.equal(o_k["num_clashes"].cpu(), o_p["num_clashes"]):
-                raise AssertionError("ScoreNet parity failed: num_clashes")
+    routes = (
+        ("fast()", ModelConfig.fast(), (0.1, 0.5, 0.9), "edges"),
+        ("fast(select_kernel=True)", ModelConfig.fast(select_kernel=True), (0.5,), "gumbel"),
+        ("fast(edge_table_kernel=False)", ModelConfig.fast(edge_table_kernel=False), (0.5,),
+         "edges"),
+    )
+    for label, mcfg, ts, inject in routes:
+        cfg = DFMDockConfig(model=mcfg)
+        net_k = load_model(None, cfg, device, seed=0)
+        net_p = load_model(None, cfg, torch.device("cpu"), seed=0)
+        if inject == "edges":
+            kw_k = dict(edges=(idx, edge_mask))
+            kw_p = dict(edges=(idx.cpu(), edge_mask.cpu()))
+        else:
+            kw_k, kw_p = dict(gumbel=gumbel), dict(gumbel=gumbel.cpu())
+        reset_counts()
+        with torch.no_grad():
+            for t in ts:
+                o_k = net_k(batch, pos, t, **kw_k)
+                o_p = net_p(cpu(batch), pos.cpu(), t, **kw_p)
+                for name in PARITY_TOL:
+                    a_err, r_err, scale = max_errs(o_k[name].cpu(), o_p[name])
+                    ok = (r_err < PARITY_TOL[name]
+                          or a_err < PARITY_ABS[name] < scale) and r_err <= F32_PARITY_REL
+                    log(f"# parity {label} t={t} {name}: max abs {a_err:.3e} "
+                        f"rel {r_err:.3e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"ScoreNet parity failed: {label} {name} t={t}")
+                if not torch.equal(o_k["num_clashes"].cpu(), o_p["num_clashes"]):
+                    raise AssertionError(f"ScoreNet parity failed: {label} num_clashes")
+        torch.cuda.synchronize()
+        log(f"# parity {label}: kernel launches {json.dumps(counts())}")
 
 
 def dock_phase(out_root):
@@ -299,17 +470,8 @@ def dock_phase(out_root):
     dock.main(["--npz", NPZ, "--num-samples", str(P), "--num-steps", "2",
                "--out-dir", warm])
     out = os.path.join(out_root, "dock")
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rows = dock.main(["--npz", NPZ, "--num-samples", str(P), "--num-steps",
-                      str(STEPS), "--out-dir", out])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = counts()
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"the dock run launched no {name} kernel")
+    rows, wall, launches = run_path("dock", DOCK_KERNELS, lambda: dock.main(
+        ["--npz", NPZ, "--num-samples", str(P), "--num-steps", str(STEPS), "--out-dir", out]))
     with open(os.path.join(out, "metrics.csv")) as f:
         csv_rows = list(csv.DictReader(f))
     if len(csv_rows) != P or len(rows) != P:
@@ -323,8 +485,8 @@ def dock_phase(out_root):
     log(f"# dock 1AVX P={P} steps={STEPS}: wall {wall:.3f} s, {steps_s:.2f} "
         f"denoising steps/s, {wall / P:.4f} s per docked pose, "
         f"best DockQ {max(float(r['DockQ']) for r in csv_rows):.4f}")
-    log(f"# launches in the dock run: {json.dumps(launches)} "
-        f"(per forward: {({k: v / (STEPS + 1) for k, v in launches.items()})})")
+    log(f"# dock launches per forward: "
+        f"{({k: v / (STEPS + 1) for k, v in launches.items()})}")
     return launches, steps_s
 
 
@@ -384,29 +546,173 @@ def profile_phase(raw, device, steps=10, top=12):
             f"x{e.count:<5d} {e.key[:90]}")
     # device time alone, without the wrapper's host work that CUDA events
     # around the wrapper also see when the kernel is short
-    for name, key in (("edge_table", "edge_table_kernel("),
+    for name, key in (("edge_table", "edge_table_kernel<true>"),
                       ("fused_egcl", "fused_egcl_kernel<false>"),
-                      ("fused_egcl_coord", "fused_egcl_kernel<true>")):
+                      ("fused_egcl_coord", "fused_egcl_kernel<true>"),
+                      ("fused_energy", "energy_")):
         hits = [e for e in kernels if key in e.key]
-        launches = sum(e.count for e in hits)
+        launches = sum(e.count for e in hits if "reduce" not in e.key)
         if launches:
             log(f"# profile {name}: {sum(map(dev_us, hits)) / 1e3 / launches:.4f} ms "
                 f"device time per launch (x{launches})")
 
 
-def bounds(table_args, layer_args):
+def read_csv(path):
+    with open(path) as f:
+        reader = csv.DictReader(f)
+        return reader.fieldnames, list(reader)
+
+
+def rank_phase(out_root):
+    """The dock CLI ranking its poses: --rank-by reranker (features at 5 t x
+    4 draws) and --energy-draws 4.  Returns the reranker run's launches and
+    the inputs of its first fused_energy call (the forward at the final
+    poses), on which the kernel line times fused_energy and counts its
+    bound."""
+    import dfmdock_tpu_torch.models.score_net as score_net
+
+    if not os.path.exists(dock.DEFAULT_RERANKER):
+        raise AssertionError(f"reranker weights missing: {dock.DEFAULT_RERANKER}")
+    result, calls = None, []
+
+    def recording(*args):
+        calls.append(args)
+        return fused_energy(*args)
+
+    for label, flags, added, energy_launches in (
+            ("rank-by reranker", ["--rank-by", "reranker"], ["rerank_score"],
+             1 + RERANK_T * RERANK_DRAWS),
+            ("energy-draws 4", ["--energy-draws", str(ENERGY_DRAWS)],
+             ["energy_first_draw", "icons", "snorm"], 1 + ENERGY_DRAWS)):
+        out = os.path.join(out_root, label.replace(" ", "_"))
+        score_net.fused_energy = recording if result is None else fused_energy
+        try:
+            _, wall, launches = run_path(label, DOCK_KERNELS, lambda: dock.main(
+                ["--npz", NPZ, "--num-samples", str(P), "--num-steps", str(STEPS),
+                 "--out-dir", out] + flags))
+        finally:
+            score_net.fused_energy = fused_energy
+        if launches["fused_energy"] != energy_launches:
+            raise AssertionError(f"{label}: {launches['fused_energy']} fused_energy "
+                                 f"launches, expected {energy_launches}")
+        cols, rows = read_csv(os.path.join(out, "metrics.csv"))
+        if len(rows) != P or cols[-len(added):] != added:
+            raise AssertionError(f"{label}: {len(rows)} rows with columns {cols}")
+        vals = np.array([[float(r[c]) for c in added + ["energy"]] for r in rows])
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{label}: non-finite ranking scores")
+        log(f"# dock 1AVX {label} P={P} steps={STEPS}: wall {wall:.3f} s, "
+            f"{P * STEPS / wall:.2f} denoising steps/s, {launches['fused_energy']} "
+            f"fused_energy launches")
+        if result is None:
+            result = launches
+    kept = [float(c[2].sum()) for c in calls]
+    log(f"# rank-by reranker: fused_energy kept pairs per call (P={P}, N="
+        f"{calls[0][2].shape[-1]}): first {kept[0]:.0f}, min {min(kept):.0f}, "
+        f"max {max(kept):.0f} over {len(kept)} calls")
+    return result, calls[0]
+
+
+def sweep_phase(out_root):
+    """The sweep CLI over SWEEP_IDS, one complex per call (the second through
+    --resume): wall per complex and the rows written."""
+    out_csv = os.path.join(out_root, "sweep.csv")
+    for i, cid in enumerate(SWEEP_IDS):
+        ids = ",".join(SWEEP_IDS[: i + 1])
+        _, wall, _ = run_path(f"sweep {cid}", DOCK_KERNELS, lambda: sweep.main(
+            ["--ids", ids, "--num-samples", str(P), "--out-csv", out_csv]
+            + (["--resume"] if i else [])))
+        log(f"# sweep {cid} P={P} steps={STEPS}: wall {wall:.3f} s")
+    _, rows = read_csv(out_csv)
+    got = [r["id"] for r in rows]
+    if got != [c for c in SWEEP_IDS for _ in range(P)]:
+        raise AssertionError(f"sweep wrote rows for {got}")
+    if not np.isfinite([float(r["energy"]) for r in rows]).all():
+        raise AssertionError("sweep: non-finite energies")
+    log(f"# sweep: {len(rows)} rows written for {', '.join(SWEEP_IDS)}")
+
+
+def route_phase(raw, device, steps=STEPS):
+    """40-step samples of P poses from one generator seed through each
+    kernel route, the edges of every forward recorded.  The select route
+    breaks ties to the lower index where torch.topk's order is open, so its
+    trajectory may leave the topk route's: reported, not a gate.  Returns
+    the launches of each route."""
+    import dfmdock_tpu_torch.models.score_net as score_net
+
+    batch = batch_to_tensors(complex_to_batch(raw), device)
+    out, launches, edges = {}, {}, {}
+    select = score_net.select_edges
+
+    def recording(*args, **kwargs):
+        result = select(*args, **kwargs)
+        edges[name].append(result)
+        return result
+
+    score_net.select_edges = recording
+    try:
+        for name, mcfg in (("topk", ModelConfig.fast()),
+                           ("select", ModelConfig.fast(select_kernel=True)),
+                           ("bins", ModelConfig.fast(edge_table_kernel=False))):
+            cfg = DFMDockConfig(model=mcfg, sampler=SamplerConfig(num_steps=steps))
+            sampler = build_sampler(load_model(None, cfg, device), cfg)
+            gen = torch.Generator(device).manual_seed(5)
+            edges[name] = []
+            out[name], wall, launches[name] = run_path(
+                f"{name} route", ROUTE_KERNELS[name],
+                lambda: sampler.sample(batch, P, gen, record_trajectory=True))
+            if not torch.isfinite(out[name]["trajectory"]).all():
+                raise AssertionError(f"{name} route: non-finite trajectory")
+            log(f"# {name} route P={P} steps={steps}: {P * steps / wall:.2f} steps/s")
+    finally:
+        score_net.select_edges = select
+    ref = out["topk"]["trajectory"]
+    for name in ("select", "bins"):
+        diff = (out[name]["trajectory"] - ref).abs().amax(dim=(0, 2, 3, 4))
+        moved = torch.nonzero(diff > 0)
+        first = int(moved[0]) + 1 if len(moved) else None
+        # the first forward whose edges (on valid slots) differ
+        first_edges = n_diff = n_sets = None
+        for step, ((i_a, m_a), (i_b, m_b)) in enumerate(zip(edges["topk"], edges[name]), 1):
+            valid = (m_a > 0.5) | (m_b > 0.5)
+            bad = (i_a != i_b) & valid
+            if bad.any() or not torch.equal(m_a, m_b):
+                # slots in another order, or another set of neighbours
+                sets = (torch.sort(torch.where(valid, i_a, -1), -1)[0]
+                        != torch.sort(torch.where(valid, i_b, -1), -1)[0]).any(-1)
+                first_edges, n_diff, n_sets = step, int(bad.sum()), int(sets.sum())
+                break
+        log(f"# route finding: {name} vs topk over {steps} steps: "
+            + ("identical trajectories" if first is None else
+               f"poses first differ after step {first} ({float(diff[first - 1]):.3e} A, "
+               f"{float(diff[-1]):.3e} A at the end)")
+            + ("; identical edges in every forward" if first_edges is None else
+               f"; edges first differ in forward {first_edges} ({n_diff} valid slots, "
+               f"{n_sets} rows with another neighbour set)"))
+    return launches
+
+
+def bounds(inputs):
     """Least time the card could take for each kernel's work (ms): the bytes
     the function must move (each input read once, each output written once)
-    over the HBM rate, or its FLOPs over the FP32 rate, whichever is larger."""
+    over the HBM rate, or its operations over the FP32 rate, whichever is
+    larger."""
+    table_args, layer_args = inputs["table"], inputs["layer"]
     idx = table_args[0]
     p, n, k = idx.shape
     e = p * n * k
     c = layer_args[4].shape[-1]
+
+    def bound(n_bytes, n_ops):
+        by_bytes, by_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_FLOP_S
+        return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
     # edge_table: idx in; bins and geometry out; pos, res_id, asym_id once
-    tb_bytes = e * 4 * (1 + EBIN_WIDTH + EGEO_WIDTH) + p * n * 36 + 2 * n * 4
-    tb_ops = e * EDGE_TABLE_OPS_PER_EDGE
-    table = max(tb_bytes / HBM_BYTES_S, tb_ops / FP32_FLOP_S) * 1e3
-    table_by = "bytes" if tb_bytes / HBM_BYTES_S >= tb_ops / FP32_FLOP_S else "operations"
+    node_bytes = p * n * 36 + 2 * n * 4
+    table = bound(e * 4 * (1 + EBIN_WIDTH + EGEO_WIDTH) + node_bytes,
+                  e * EDGE_TABLE_OPS_PER_EDGE)
+    # edge_bins: idx in; the five bins out
+    bins = bound(e * 4 * (1 + EBIN_WIDTH) + node_bytes, e * EDGE_BINS_OPS_PER_EDGE)
     # fused_egcl: per edge idx, mask, bins, radial (+ coord-diff on the coord
     # layer); a, B in and agg out; tables and weights once.  Operations: the
     # [C] x [C, C] product per edge (twice on the coord layer).
@@ -414,10 +720,23 @@ def bounds(table_args, layer_args):
     base = 4 * (e * (3 + EBIN_WIDTH) + 3 * p * n * c + tables)
     coord_bytes = base + 4 * (e * 3 + c * c + 2 * c + p * n * 3)
     gemm = 2 * e * c * c
-    layer = max(base / HBM_BYTES_S, gemm / FP32_FLOP_S) * 1e3
-    coord = max(coord_bytes / HBM_BYTES_S, 2 * gemm / FP32_FLOP_S) * 1e3
-    return {"edge_table": (table, table_by), "fused_egcl": (layer, "operations"),
-            "fused_egcl_coord": (coord, "operations")}
+    # fused_energy: hr, hl and the pair mask in, the LN affine and w2 once,
+    # [P] out; operations over the pairs the mask keeps
+    hr, _, pair_mask, *_ = inputs["energy"]
+    kept = float(pair_mask.sum())
+    energy = bound(4 * (2 * hr.numel() + pair_mask.numel() + 3 * c + p),
+                   kept * c * ENERGY_OPS_PER_CHANNEL)
+    # select_topk: dist and y in (node_mask once), idx and edge_mask out;
+    # operations: one compare per lane per extraction
+    dist, _, node_mask = inputs["select"]
+    sp, sn = dist.shape[0], dist.shape[-1]
+    select = bound(4 * 2 * dist.numel() + sn + sp * sn * k * 8, sp * sn * k * sn)
+    return {"edge_table": table, "fused_egcl": (max(base / HBM_BYTES_S, gemm / FP32_FLOP_S) * 1e3,
+                                                "operations"),
+            "fused_egcl_coord": (max(coord_bytes / HBM_BYTES_S, 2 * gemm / FP32_FLOP_S) * 1e3,
+                                 "operations"),
+            "fused_energy": energy, "select_topk": select, "edge_bins": bins,
+            "kept_pairs": kept}
 
 
 def main():
@@ -431,14 +750,14 @@ def main():
     smi = device_phase()
 
     t0 = time.perf_counter()
-    built = _build.build("edge_table", "fused_egcl")
+    built = _build.build(*BUILD)
     log(f"# build: {json.dumps({k: round(v, 2) for k, v in built.items()})} s per "
         f"source (parallel), {time.perf_counter() - t0:.2f} s wall")
 
     raw = load_npz_complex(NPZ)
     raw["id"] = "1AVX"
     t0 = time.perf_counter()
-    errs, (table_args, layer_args, coord) = kernel_phase(raw, device)
+    errs, inputs = kernel_phase(raw, device)
     log(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -447,12 +766,37 @@ def main():
 
     with tempfile.TemporaryDirectory() as out_root:
         launches, steps_s = dock_phase(out_root)
-    sampler_steps_s = sampler_phase(raw, device)
-
+        sampler_steps_s = sampler_phase(raw, device)
+        t0 = time.perf_counter()
+        profile_phase(raw, device)
+        log(f"# profile: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rank_launches, inputs["energy"] = rank_phase(out_root)
+        log(f"# ranking dock: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        sweep_phase(out_root)
+        log(f"# sweep: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    profile_phase(raw, device)
-    log(f"# profile: {time.perf_counter() - t0:.1f} s")
+    route_launches = route_phase(raw, device)
+    log(f"# kernel routes: {time.perf_counter() - t0:.1f} s")
 
+    # each kernel's launches from the main path that runs it
+    path_launches = {
+        "edge_table": ("dock", launches), "fused_egcl": ("dock", launches),
+        "fused_egcl_coord": ("dock", launches),
+        "fused_energy": ("rank-by reranker", rank_launches),
+        "select_topk": ("select route", route_launches["select"]),
+        "edge_bins": ("bins route", route_launches["bins"]),
+    }
+    # fused_energy against its plain version on the inputs the path gave it
+    e_k, e_p = fused_energy(*inputs["energy"]), fused_energy_plain(*inputs["energy"])
+    a_err, r_err, _ = max_errs(e_k, e_p)
+    if r_err > F32_REL or not torch.isfinite(e_k).all():
+        raise AssertionError(f"fused_energy on the path's inputs: rel err {r_err:.3e}")
+    errs["fused_energy"] = max(errs["fused_energy"], a_err)
+    log(f"# fused_energy on the reranker run's final-pose inputs: max abs {a_err:.3e} "
+        f"rel {r_err:.3e}")
+    table_args, layer_args, coord = inputs["table"], inputs["layer"], inputs["coord"]
     table_kw = dict(normalize=True)
     timings = {
         "edge_table": (lambda: build_edge_table(*table_args, **table_kw),
@@ -461,17 +805,26 @@ def main():
                        lambda: fused_edge_layer_plain(*layer_args)),
         "fused_egcl_coord": (lambda: fused_edge_layer(*layer_args, coord),
                              lambda: fused_edge_layer_plain(*layer_args, coord)),
+        "fused_energy": (lambda: fused_energy(*inputs["energy"]),
+                         lambda: fused_energy_plain(*inputs["energy"])),
+        "select_topk": (lambda: select_topk(*inputs["select"]),
+                        lambda: select_topk_plain(*inputs["select"])),
+        "edge_bins": (lambda: edge_bins(*table_args), lambda: edge_bins_plain(*table_args)),
     }
-    bound = bounds(table_args, layer_args)
+    bound = bounds(inputs)
+    log(f"# fused_energy is timed and its bound counted on the reranker run's "
+        f"final-pose inputs: {bound['kept_pairs']:.0f} kept pairs (P={P})")
     kernels = []
     for name, (kern, plain) in timings.items():
         ms, plain_ms = time_ms(kern), time_ms(plain, reps=3, inner=3)
         b_ms, b_by = bound[name]
-        log(f"# {name}: {ms:.4f} ms/launch (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"by {b_by}), {launches[name] / (STEPS + 1):.2f} launches per forward")
+        path, path_counts = path_launches[name]
+        log(f"# {name}: {ms:.4f} ms/launch (device {device_ms(kern):.4f} ms; plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}), {path_counts[name]} "
+            f"launches in the {path} run")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": launches[name],
+            "replaces": SOURCES[name][1], "launches": path_counts[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

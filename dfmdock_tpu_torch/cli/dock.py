@@ -1,9 +1,13 @@
 """Dock one preprocessed complex: the port of `python -m dfmdock_tpu.cli.dock --npz`.
 
-All poses run batched through the reverse SDE; the minimum-energy pose is
-written as a PDB and every pose's metrics as a CSV row.
+All poses run batched through the reverse SDE; the best pose is written as
+a PDB and every pose's metrics as a CSV row.  Poses are ranked by their
+final energy, or (--rank-by) by the mean over --energy-draws edge-sampling
+draws of energy, icons or snorm, or by the learned linear re-ranker over a
+grid of those scores (ckpts/db5_cv/reranker.md).
 
   python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz --num-samples 16
+  python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz --rank-by reranker
 
 By default the EGCL stack runs through the CUDA kernels on `cuda`;
 `--exact` selects the eager float32 path and `--device cpu` the CPU.
@@ -11,6 +15,7 @@ By default the EGCL stack runs through the CUDA kernels on `cuda`;
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -23,10 +28,47 @@ from dfmdock_tpu_torch.cli.common import (
     resolve_device,
     write_csv,
 )
+from dfmdock_tpu_torch.cli.sweep import _multi_draw_scores
 from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
 from dfmdock_tpu_torch.data.convert import load_npz_complex
 from dfmdock_tpu_torch.data.pdb_io import get_full_coords, save_pdb
 from dfmdock_tpu_torch.sampler import EMSampler
+
+DEFAULT_RERANKER = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "ckpts", "db5_cv", "reranker_weights.json")
+
+
+def _reranker_scores(net, raw, results, rows, weights_path, k_draws, seed, device):
+    """Score every pose with the learned linear re-ranker (higher = better).
+
+    The feature matrix is the (family, t) grid of K-draw mean scores named
+    in the weights JSON (e.g. ``energy_t1em05_mean``) plus ``num_clashes``,
+    z-scored within this complex, then dotted with the fitted weights; the t
+    of each feature is parsed back from its name, as the JAX CLI does."""
+    with open(weights_path) as f:
+        spec = json.load(f)
+    feats, w = spec["features"], np.asarray(spec["weights"], np.float64)
+    pos_all = results["pos"]
+    n_poses, pad_to = int(pos_all.shape[0]), int(pos_all.shape[1])
+    per_t = {}  # t -> {energy/icons/snorm: [P]}
+    X = np.zeros((n_poses, len(feats)), np.float64)
+    for j, name in enumerate(feats):
+        if name == "num_clashes":
+            X[:, j] = [r["num_clashes"] for r in rows]
+            continue
+        fam, rest = name.split("_t", 1)
+        if not rest.endswith("_mean") or fam not in ("energy", "icons", "snorm"):
+            raise ValueError(f"unsupported reranker feature {name!r}: the CLI "
+                             "computes *_t*_mean grids and num_clashes")
+        t = float(rest[: -len("_mean")].replace("m", "-"))
+        if t not in per_t:
+            per_t[t] = _multi_draw_scores(net, raw, pos_all, pad_to, k_draws, seed,
+                                          device, t_eval=t)
+        X[:, j] = per_t[t][fam]
+    mu, sd = X.mean(0), X.std(0)
+    Xz = (X - mu) / np.where(sd > 1e-12, sd, 1.0)
+    return Xz @ w
 
 
 def main(argv=None) -> list[dict]:
@@ -42,8 +84,27 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--num-steps", type=int, default=40)
     ap.add_argument("--tr-noise-scale", type=float, default=0.5)
     ap.add_argument("--rot-noise-scale", type=float, default=0.5)
+    ap.add_argument("--use-clash-force", action="store_true")
     ap.add_argument("--noise-annealing", action="store_true")
     ap.add_argument("--ode", action="store_true")
+    ap.add_argument("--integrator", choices=["em", "heun"], default="em",
+                    help="heun: 2nd-order probability-flow ODE (implies --ode)")
+    ap.add_argument("--energy-draws", type=int, default=1,
+                    help="> 1: rank by the mean energy over K independent "
+                         "edge-sampling draws")
+    ap.add_argument("--rank-by", choices=["energy", "icons", "snorm", "reranker"],
+                    default="energy",
+                    help="pose-ranking key: energy, icons (interface "
+                         "self-consistency) or snorm (score magnitude), all "
+                         "lower = better, or reranker: the learned linear "
+                         "combination of t-grid energy/icons/snorm features "
+                         "(higher = better; ckpts/db5_cv/reranker.md)")
+    ap.add_argument("--reranker-weights", default=DEFAULT_RERANKER,
+                    help="feature/weight JSON of scripts/fit_reranker.py "
+                         "(used by --rank-by reranker)")
+    ap.add_argument("--reranker-draws", type=int, default=4,
+                    help="edge-sampling draws per t of the reranker features "
+                         "(4 = what the committed weights were fit with)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--write-all-poses", action="store_true")
     ap.add_argument("--exact", action="store_true",
@@ -58,11 +119,14 @@ def main(argv=None) -> list[dict]:
             num_steps=args.num_steps,
             tr_noise_scale=args.tr_noise_scale,
             rot_noise_scale=args.rot_noise_scale,
+            use_clash_force=args.use_clash_force,
             noise_annealing=args.noise_annealing,
-            ode=args.ode,
+            ode=args.ode or args.integrator == "heun",
+            integrator=args.integrator,
         ),
     )
-    sampler = build_sampler(load_model(args.ckpt, cfg, device), cfg)
+    net = load_model(args.ckpt, cfg, device)
+    sampler = build_sampler(net, cfg)
     os.makedirs(args.out_dir, exist_ok=True)
 
     job = load_npz_complex(args.npz)
@@ -72,7 +136,25 @@ def main(argv=None) -> list[dict]:
         sampler, job, generator, args.num_samples, device,
         native=(job["rec_pos"], job["lig_pos"]),
     )
-    best = EMSampler.rank_by_energy({"energy": torch.from_numpy(results["energy"])})
+    if args.rank_by == "reranker":
+        scores = _reranker_scores(net, job, results, rows, args.reranker_weights,
+                                  args.reranker_draws, args.seed, device)
+        for i, r in enumerate(rows):
+            r["rerank_score"] = float(scores[i])
+        best = int(np.argmax(scores))  # reranker: higher = better
+    elif args.energy_draws > 1 or args.rank_by != "energy":
+        scores = _multi_draw_scores(net, job, results["pos"], int(results["pos"].shape[1]),
+                                    args.energy_draws, args.seed, device,
+                                    t_eval=cfg.sampler.eps)
+        for i, r in enumerate(rows):
+            if args.energy_draws > 1:
+                r["energy_first_draw"] = r["energy"]
+                r["energy"] = float(scores["energy"][i])
+            r["icons"] = float(scores["icons"][i])
+            r["snorm"] = float(scores["snorm"][i])
+        best = int(np.argmin(scores[args.rank_by]))
+    else:
+        best = EMSampler.rank_by_energy({"energy": torch.from_numpy(results["energy"])})
     pos = results["pos"]
     for i in range(args.num_samples) if args.write_all_poses else [best]:
         coords = np.concatenate([pos[i, :R], pos[i, R : R + L]])

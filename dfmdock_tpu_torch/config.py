@@ -31,13 +31,15 @@ class ModelConfig:
     # whatever this says: its kernels are float32 in this release.
     compute_dtype: str = "float32"
     # Inference path through the hand-written CUDA kernels (ops/edge_table.py,
-    # ops/fused_egcl.py).  Off = the eager float32 path (`--exact`).
+    # ops/fused_egcl.py, ops/energy_head.py).  Off = the eager float32 path
+    # (`--exact`).
     use_pallas: bool = False
-    # Kept for equality with the JAX config, where it picks the edge table's
-    # build.  The port has one kernel path: ScoreNet refuses use_pallas
-    # without it.
+    # With use_pallas: the edge table in one kernel (ops/edge_table
+    # build_edge_table); off = its bins-only mode (edge_bins) plus plain
+    # torch geometry, the JAX package's XLA-built table.
     edge_table_kernel: bool = False
-    # Fused edge selection: not ported yet; the port refuses it.
+    # With use_pallas: edge selection through the select_topk kernel (ties
+    # to the lower index; the same Gumbel draw as the torch.topk route).
     select_kernel: bool = False
     # Center on the ligand-CA centroid inside the net (mlsb lineage).
     center_in_net: bool = True
@@ -125,7 +127,8 @@ class SamplerConfig:
     init_tr_sigma: float = 30.0
     # 'ca' = ligand-CA centroid, 'bb' = all-backbone-atom mean
     center_mode: str = "ca"
-    # 'em' = Euler-Maruyama; 'heun' is not ported yet
+    # 'em' = Euler-Maruyama; 'heun' = second-order Heun on the
+    # probability-flow ODE (needs ode=True)
     integrator: str = "em"
 
 

@@ -3,12 +3,15 @@
 // Replaces the TPU kernel dfmdock_tpu/ops/edge_table.py:build_edge_table
 // (body `_kernel`), which gathered node geometry with one-hot matrix
 // products and evaluated atan with a polynomial; here the gathers are plain
-// loads and the trig is libdevice's atan2f/acosf.
+// loads and the trig is libdevice's atan2f/acosf.  The bins-only entry
+// point (edge_bins_launch, the same code without the geometry stores)
+// replaces the parked TPU kernel dfmdock_tpu/ops/edge_bins.py:edge_bins
+// (body `_kernel`): the five bins of an edge are the same bits either way.
 //
 // Bound: bytes.  Per edge it reads idx (4 B) and two 36 B backbone rows
 // (L1/L2 resident: one pose's pos is 16 KB at N = 448), and writes five
-// int32 bins and four f32 of geometry (36 B); a few hundred FLOPs per edge
-// do not approach the card's rate.
+// int32 bins and four f32 of geometry (36 B; the bins-only mode 20 B); a
+// few hundred FLOPs per edge do not approach the card's rate.
 //
 // The arithmetic follows the plain version (ops/edge_table.py
 // build_edge_table_plain) operation for operation, so bins agree except
@@ -66,6 +69,8 @@ __device__ __forceinline__ int bin_of(float x, const float* bounds, int nb) {
   return count;
 }
 
+// kGeo: also write the EGNN geometry (radial, coord-diff) of every edge.
+template <bool kGeo>
 __global__ void edge_table_kernel(const int* __restrict__ idx, const float* __restrict__ pos,
                                   const int* __restrict__ res_id,
                                   const int* __restrict__ asym_id, const float* __restrict__ bounds,
@@ -114,15 +119,29 @@ __global__ void edge_table_kernel(const int* __restrict__ idx, const float* __re
     rp = 2 * kMaxRelative + 1;
   }
 
-  if (normalize) diff = divs(diff, sqrtf(rad + 1e-8f) + 1.0f);
-
   int* out_b = ebin + e * kBins;
   out_b[0] = db;
   out_b[1] = ob;
   out_b[2] = tb;
   out_b[3] = pb;
   out_b[4] = rp;
-  reinterpret_cast<float4*>(egeo)[e] = make_float4(rad, diff.x, diff.y, diff.z);
+  if (kGeo) {
+    if (normalize) diff = divs(diff, sqrtf(rad + 1e-8f) + 1.0f);
+    reinterpret_cast<float4*>(egeo)[e] = make_float4(rad, diff.x, diff.y, diff.z);
+  }
+}
+
+template <bool kGeo>
+int launch(const int* idx, const float* pos, const int* res_id, const int* asym_id,
+           const float* bounds, int P, int N, int K, int normalize, int* ebin, float* egeo,
+           void* stream) {
+  const int64_t edges = (int64_t)P * N * K;
+  const int threads = 256;
+  const int64_t blocks = (edges + threads - 1) / threads;
+  if (blocks > 0)
+    edge_table_kernel<kGeo><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        idx, pos, res_id, asym_id, bounds, P, N, K, normalize, ebin, egeo);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -131,11 +150,12 @@ extern "C" int edge_table_launch(const int* idx, const float* pos, const int* re
                                  const int* asym_id, const float* bounds,
                                  int P, int N, int K, int normalize, int* ebin, float* egeo,
                                  void* stream) {
-  const int64_t edges = (int64_t)P * N * K;
-  const int threads = 256;
-  const int64_t blocks = (edges + threads - 1) / threads;
-  if (blocks > 0)
-    edge_table_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        idx, pos, res_id, asym_id, bounds, P, N, K, normalize, ebin, egeo);
-  return (int)cudaGetLastError();
+  return launch<true>(idx, pos, res_id, asym_id, bounds, P, N, K, normalize, ebin, egeo,
+                      stream);
+}
+
+extern "C" int edge_bins_launch(const int* idx, const float* pos, const int* res_id,
+                                const int* asym_id, const float* bounds, int P, int N, int K,
+                                int* ebin, void* stream) {
+  return launch<false>(idx, pos, res_id, asym_id, bounds, P, N, K, 0, ebin, nullptr, stream);
 }

@@ -5,10 +5,13 @@ concatenated complex; nothing is cropped at inference.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from dfmdock_tpu_torch.data.batching import pad_complex
+from dfmdock_tpu_torch.data.convert import load_npz_complex
 from dfmdock_tpu_torch.features.residues import sequence_to_onehot
 
 
@@ -32,3 +35,26 @@ def batch_to_tensors(batch: dict, device) -> dict:
     for k in ("x", "pos", "node_mask", "lig_mask", "res_id", "asym_id"):
         out[k] = torch.from_numpy(np.asarray(batch[k])).to(device)
     return out
+
+
+class NPZDataset:
+    """Complex-per-file npz dataset with an id list: `test.txt` in the
+    directory if present (ids without a file are dropped), else every npz
+    in name order (the DB5 layout of `data/db5_npz/`)."""
+
+    def __init__(self, data_dir: str, list_file: str | None = None):
+        self.data_dir = data_dir
+        if list_file is None:
+            list_file = os.path.join(data_dir, "test.txt")
+        if os.path.exists(list_file):
+            with open(list_file) as f:
+                ids = [line.strip() for line in f if line.strip()]
+            self.ids = [i for i in ids
+                        if os.path.exists(os.path.join(data_dir, i + ".npz"))]
+        else:
+            self.ids = sorted(f[:-4] for f in os.listdir(data_dir) if f.endswith(".npz"))
+
+    def load_raw(self, idx: int) -> dict:
+        d = load_npz_complex(os.path.join(self.data_dir, self.ids[idx] + ".npz"))
+        d["id"] = self.ids[idx]
+        return d

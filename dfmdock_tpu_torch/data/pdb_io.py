@@ -1,4 +1,5 @@
-"""PDB writing for docked poses (the writer half of `dfmdock_tpu/data/pdb_io.py`).
+"""PDB writing for docked poses and trajectories (the writer half of
+`dfmdock_tpu/data/pdb_io.py`).
 
 N/CA/C(/O/CB) records with CB reconstructed from the backbone and O placed
 by ideal geometry (reference utils/pdb.py, inference_mlsb.py).
@@ -65,3 +66,18 @@ def save_pdb(
                        x, y, z, 1.0, b_factors[r])
                 )
                 k += 1
+
+
+def save_trajectory(out_pdb: str, traj_rec, traj_lig, rec_seq: str, lig_seq: str):
+    """Multi-MODEL trajectory PDB: one MODEL per frame of [R, 3, 3] receptor
+    and [L, 3, 3] ligand backbones (inference_mlsb.py:130-159)."""
+    with open(out_pdb, "w"):
+        pass
+    for i, (rec, lig) in enumerate(zip(traj_rec, traj_lig)):
+        coords = np.concatenate([np.asarray(rec), np.asarray(lig)], axis=0)
+        with open(out_pdb, "a") as f:
+            f.write(f"MODEL        {i}\n")
+        save_pdb(out_pdb, get_full_coords(coords), rec_seq + lig_seq,
+                 delim=len(rec_seq) - 1, append=True)
+        with open(out_pdb, "a") as f:
+            f.write("ENDMDL\n")

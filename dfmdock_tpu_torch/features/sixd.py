@@ -126,12 +126,11 @@ def sixd_values_at(pos: torch.Tensor, idx: torch.Tensor):
     return dist, omega, theta, phi, ca_j
 
 
-def sixd_bins_at(pos: torch.Tensor, idx: torch.Tensor, return_ca_j: bool = False):
+def sixd_bins_at(pos: torch.Tensor, idx: torch.Tensor):
     """6D bins at neighbour pairs (i, idx[..., i, k]).
 
-    Returns (dist_bin, omega_bin, theta_bin, phi_bin), each [..., N, K] int32
-    [, ca_j [..., N, K, 3]]."""
-    dist, omega, theta, phi, ca_j = sixd_values_at(pos, idx)
+    Returns (dist_bin, omega_bin, theta_bin, phi_bin), each [..., N, K] int32."""
+    dist, omega, theta, phi, _ = sixd_values_at(pos, idx)
     rows = torch.arange(pos.shape[-3], device=idx.device, dtype=idx.dtype)
     keep = (dist < SPATIAL_MASK_CUTOFF) & (idx != rows[:, None])
     zero = torch.zeros((), dtype=torch.int32, device=idx.device)
@@ -139,8 +138,6 @@ def sixd_bins_at(pos: torch.Tensor, idx: torch.Tensor, return_ca_j: bool = False
     ob = torch.where(keep, bin_index(omega, ANGLE_BOUNDARIES), zero)
     tb = torch.where(keep, bin_index(theta, ANGLE_BOUNDARIES), zero)
     pb = torch.where(keep, bin_index(phi, PHI_BOUNDARIES), zero)
-    if return_ca_j:
-        return (db, ob, tb, pb), ca_j
     return db, ob, tb, pb
 
 

@@ -4,19 +4,29 @@ Per node, the `knn` nearest neighbours by CA distance (self included) plus
 `sample_size` distinct non-neighbours drawn without replacement with
 probability proportional to 1/d^3, as Gumbel-top-k (the same distribution).
 Small graphs shrink the counts through the slot mask.  Mirrors
-`dfmdock_tpu/models/edges.select_edges`; `torch.topk` does both selections.
+`dfmdock_tpu/models/edges.select_edges` and, with `kernel=True`,
+`select_edges_dispatch`'s fused route: `torch.topk` does both selections,
+or the select_topk kernel (ops/select_topk) does them in one pass.
 """
 from __future__ import annotations
 
 import torch
 
-_NEG_INF = -1e30
+from dfmdock_tpu_torch.ops.select_topk import NEG_INF, select_topk, slot_mask
 
 
 def sample_gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     tiny = torch.finfo(torch.float32).tiny
     u = torch.rand(shape, generator=generator, device=device).clamp(min=tiny)
     return -torch.log(-torch.log(u))
+
+
+def select_y(dist, node_mask, gumbel):
+    """The select_topk kernel's sampling keys: where(valid column,
+    -3 log max(d, 1e-10), -1e30) + gumbel, computed by torch so that the
+    kernel only compares values."""
+    logits = -3.0 * torch.log(torch.clamp(dist, min=1e-10))
+    return torch.where(node_mask[None, :], logits, torch.full_like(logits, NEG_INF)) + gumbel
 
 
 def select_edges(
@@ -26,6 +36,7 @@ def select_edges(
     sample_size: int = 40,
     generator: torch.Generator | None = None,
     gumbel: torch.Tensor | None = None,
+    kernel: bool = False,
 ):
     """Neighbour sets from distances.
 
@@ -33,15 +44,20 @@ def select_edges(
       dist: [..., N, N] CA distances; node_mask: [N] bool.
       generator: draws the Gumbel noise when `gumbel` is not given.
       gumbel: optional [..., N, N] injected Gumbel noise.
+      kernel: select through `ops.select_topk` (ties to the lower index);
+        the same Gumbel draw as the `torch.topk` route.
 
     Returns idx [..., N, knn+sample_size] int32 and edge_mask (same shape,
     float32, 0 on padded slots).
     """
-    n_tot = dist.shape[-1]
-    valid_col = node_mask[None, :]
-    n = node_mask.sum()
+    if sample_size > 0 and gumbel is None:
+        gumbel = sample_gumbel(dist.shape, generator, dist.device)
+    if kernel:
+        y = select_y(dist, node_mask, gumbel) if sample_size > 0 else torch.zeros_like(dist)
+        return select_topk(dist, y, node_mask, knn, sample_size)
 
-    masked_neg = torch.where(valid_col, -dist, torch.full_like(dist, _NEG_INF))
+    valid_col = node_mask[None, :]
+    masked_neg = torch.where(valid_col, -dist, torch.full_like(dist, NEG_INF))
     knn_neg, knn_idx = torch.topk(masked_neg, knn, dim=-1)
     parts = [knn_idx]
     if sample_size > 0:
@@ -49,17 +65,8 @@ def select_edges(
         non_knn = masked_neg < knn_neg[..., -1:]
         logits = -3.0 * torch.log(torch.clamp(dist, min=1e-10))
         logits = torch.where(
-            valid_col & non_knn, logits, torch.full_like(logits, _NEG_INF)
+            valid_col & non_knn, logits, torch.full_like(logits, NEG_INF)
         )
-        if gumbel is None:
-            gumbel = sample_gumbel(dist.shape, generator, dist.device)
         parts.append(torch.topk(logits + gumbel, sample_size, dim=-1)[1])
     idx = torch.cat(parts, dim=-1).to(torch.int32)
-
-    # slot validity: knn slots 0..min(n,knn)-1; sample slots 0..clip(n-knn)-1
-    n_knn = torch.clamp(n, max=knn)
-    n_samp = torch.clamp(n - knn, 0, sample_size)
-    slot = torch.arange(knn + sample_size, device=dist.device)
-    slot_ok = torch.where(slot < knn, slot < n_knn, (slot - knn) < n_samp)
-    edge_mask = node_mask[:, None] & slot_ok & node_mask[idx.long()]
-    return idx, edge_mask.to(torch.float32)
+    return idx, slot_mask(idx, node_mask, knn, sample_size)

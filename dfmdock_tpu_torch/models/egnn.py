@@ -7,7 +7,8 @@ Two forward paths share the parameters:
 - `egnn_apply`: the eager float32 formulation (`--exact`), against which
   the kernels are held;
 - `egnn_apply_fused`: the inference path through `ops/fused_egcl`, which
-  reads the per-step edge table of `ops/edge_table`.
+  reads the per-step edge table of `ops/edge_table` (built by the edge_table
+  kernel, or by `build_edge_table_unfused` with that kernel off).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from torch import nn
 
 from dfmdock_tpu_torch.features.sixd import gather_rows
 from dfmdock_tpu_torch.models.modules import GraphNorm
+from dfmdock_tpu_torch.ops.edge_table import edge_bins, edge_geometry
 from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer
 
 
@@ -94,6 +96,14 @@ def egnn_apply(layers, h, coord, idx, edge_mask, edge_attr, node_mask, lig_mask,
         h, coord = layer(h, coord, idx, edge_mask, edge_attr, node_mask, lig_mask,
                          normalize=normalize)
     return h, coord
+
+
+def build_edge_table_unfused(idx, pos, res_id, asym_id, *, normalize: bool):
+    """The edge table with the edge_table kernel off (the JAX package's
+    `build_edge_table_xla` route): ebin from the edge_bins kernel, egeo from
+    plain PyTorch geometry.  Arguments and layout as `build_edge_table`."""
+    return (edge_bins(idx, pos, res_id, asym_id),
+            edge_geometry(idx, pos, normalize=normalize))
 
 
 def egnn_apply_fused(layers, spatial_w, positional_w, h, coord, idx, edge_mask,

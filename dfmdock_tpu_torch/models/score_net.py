@@ -9,8 +9,11 @@ ligand rows).  Per forward:
   6 EGCL layers (last one moves ligand CAs) -> tr/rot scores via `_rescale`
   [-> energy head over receptor x ligand pairs in row chunks, ires, clashes]
 
-With `cfg.use_pallas` the EGCL stack runs through the CUDA kernels
-(ops/edge_table, ops/fused_egcl); otherwise through the eager float32 path.
+With `cfg.use_pallas` the forward runs through the CUDA kernels: the edge
+table (ops/edge_table: the whole table, or with `edge_table_kernel` off its
+bins alone), the EGCL stack (ops/fused_egcl), the energy head
+(ops/energy_head) and, with `select_kernel`, edge selection
+(ops/select_topk); otherwise through the eager float32 path.
 
 Batch (tensors on the model's device): h0 [N, C] or x [N, F], node_mask [N]
 bool, lig_mask [N] f32, res_id / asym_id [N] int32.
@@ -22,7 +25,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfmdock_tpu_torch.config import ModelConfig
-from dfmdock_tpu_torch.data.batching import ENERGY_ROW_CHUNK
 from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES, relpos_bin_at
 from dfmdock_tpu_torch.features.sixd import (
     SPATIAL_DIM,
@@ -31,9 +33,15 @@ from dfmdock_tpu_torch.features.sixd import (
     spatial_embed_from_bins,
 )
 from dfmdock_tpu_torch.models.edges import select_edges
-from dfmdock_tpu_torch.models.egnn import EGCL, egnn_apply, egnn_apply_fused
+from dfmdock_tpu_torch.models.egnn import (
+    EGCL,
+    build_edge_table_unfused,
+    egnn_apply,
+    egnn_apply_fused,
+)
 from dfmdock_tpu_torch.models.modules import LN_EPS, TimeEmbed, init_weights
 from dfmdock_tpu_torch.ops.edge_table import build_edge_table
+from dfmdock_tpu_torch.ops.energy_head import fused_energy, fused_energy_plain
 
 
 class ScaleMLP(nn.Module):
@@ -56,11 +64,6 @@ class ScaleMLP(nn.Module):
 class ScoreNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.use_pallas and cfg.select_kernel:
-            raise NotImplementedError("the select_topk kernel is not ported yet")
-        if cfg.use_pallas and not cfg.edge_table_kernel:
-            raise ValueError("the kernel path builds its edge table with the "
-                             "edge_table kernel: use_pallas needs edge_table_kernel")
         self.cfg = c = cfg
         self.single_embed = nn.Linear(c.lm_embed_dim, c.node_dim, bias=False)
         # [bins, edge_dim] lookup tables == Linear(bins -> edge_dim) weights
@@ -121,14 +124,16 @@ class ScoreNet(nn.Module):
         dist = pairwise_ca_dist(pos)
         if edges is None:
             edges = select_edges(dist, node_mask, c.knn, c.sample_size,
-                                 generator=generator, gumbel=gumbel)
+                                 generator=generator, gumbel=gumbel,
+                                 kernel=c.use_pallas and c.select_kernel)
         idx, edge_mask = edges
         spatial_w = self.spatial_embed.weight.t()
         positional_w = self.positional_embed.weight.t()
 
         if c.use_pallas:
-            ebin, egeo = build_edge_table(idx, pos.contiguous(), batch["res_id"],
-                                          batch["asym_id"], normalize=c.normalize)
+            build = build_edge_table if c.edge_table_kernel else build_edge_table_unfused
+            ebin, egeo = build(idx, pos.contiguous(), batch["res_id"], batch["asym_id"],
+                               normalize=c.normalize)
             h, coord_out = egnn_apply_fused(
                 self.egnn, spatial_w, positional_w, h, ca, idx, edge_mask, ebin,
                 egeo, node_mask, lig_valid,
@@ -162,20 +167,18 @@ class ScoreNet(nn.Module):
 
     def _energy(self, h: torch.Tensor, pair_mask: torch.Tensor) -> torch.Tensor:
         """Masked mean of MLP(concat[h_i, h_j]) over receptor x ligand pairs,
-        in row chunks so [P, N, N, C] never materializes.  h [P, N, C],
+        the first Linear split into its h_i / h_j halves; the kernel path
+        through ops/energy_head, the eager path through its plain version
+        (row chunks: [P, N, N, C] never materializes).  h [P, N, C],
         pair_mask [P, N, N] -> [P]."""
-        p, n, c = h.shape
+        c = h.shape[-1]
         w = self.to_energy["l0"].weight  # [C, 2C]: h_i / h_j halves
-        hr = h @ w[:, :c].t()
-        hl = h @ w[:, c:].t()
-        ln, l1 = self.to_energy["ln"], self.to_energy["l1"]
-        num = torch.zeros(p, device=h.device)
-        chunk = min(ENERGY_ROW_CHUNK, n)
-        for s in range(0, n, chunk):
-            pair = hr[:, s : s + chunk, None, :] + hl[:, None, :, :]
-            e = l1(F.silu(ln(pair))).squeeze(-1)  # [P, chunk, N]
-            num = num + (e * pair_mask[:, s : s + chunk]).sum((-2, -1))
-        return num / (pair_mask.sum((-2, -1)) + 1e-6)
+        hr = torch.matmul(h, w[:, :c].t())
+        hl = torch.matmul(h, w[:, c:].t())
+        ln = self.to_energy["ln"]
+        energy = fused_energy if self.cfg.use_pallas else fused_energy_plain
+        return energy(hr.contiguous(), hl.contiguous(), pair_mask.contiguous(),
+                      ln.weight, ln.bias, self.to_energy["l1"].weight[0])
 
     def _ires(self, h: torch.Tensor) -> torch.Tensor:
         p = self.to_ires

@@ -2,12 +2,15 @@
 
 Mirrors `dfmdock_tpu/sampler/em.py` (EMSampler.sample / sample_one): a random
 start pose per pose, `num_steps` reverse steps that each call the ScoreNet
-with `scores_only`, one full forward at the final pose, ranking by energy.
-Randomness comes from one torch.Generator; `init` and `noise` inject the
-start pose and the step noise instead.
+with `scores_only` (integrator 'em', or 'heun': a second-order step on the
+probability-flow ODE), an optional clash-force nudge after each step, one
+full forward at the final pose, ranking by energy.  Randomness comes from
+one torch.Generator; `init` and `noise` inject the start pose and the step
+noise instead.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dfmdock_tpu_torch.config import SamplerConfig
@@ -62,14 +65,36 @@ def modify_coords(pos, lig_mask, rot_aa, tr, mode: str = "ca"):
     return _rotate_ligand(pos, lig_mask, axis_angle_to_matrix(rot_aa[:, 0]), center, tr[:, 0])
 
 
+def clash_force(pos, lig_mask, node_mask):
+    """Repulsion-gradient translation nudging clashing ligands apart
+    (inference_base.py:366-384): rep(d) = |4 - d|^1.5 / (1.5 * d * 0.5) for
+    d < 4 A over all receptor x ligand backbone-atom pairs; the force is the
+    gradient of -5 * sum(rep) with respect to the ligand atoms, averaged
+    over them.  pos [..., N, 3, 3] -> [..., 3]."""
+    valid = node_mask.to(torch.float32)
+    lig_w = (lig_mask * valid).repeat_interleave(3)
+    rec_w = ((1.0 - lig_mask) * valid).repeat_interleave(3)
+    atoms = pos.detach().reshape(*pos.shape[:-3], -1, 3)
+    with torch.enable_grad():
+        lig_atoms = atoms.clone().requires_grad_(True)
+        diff = atoms[..., :, None, :] - lig_atoms[..., None, :, :]
+        d = torch.sqrt(torch.clamp((diff * diff).sum(-1), min=1e-12))
+        x0, p, w_rep = 4.0, 1.5, 5.0
+        rep = torch.where(d < x0, (x0 - d).abs() ** p / (p * d * (p - 1)),
+                          torch.zeros_like(d))
+        rep = rep * rec_w[:, None] * lig_w[None, :]
+        (grad,) = torch.autograd.grad(-w_rep * rep.sum(), lig_atoms)
+    return (grad * lig_w[:, None]).sum(-2) / lig_w.sum().clamp(min=1.0)
+
+
 class EMSampler:
     """Reverse-SDE docking sampler over a ScoreNet."""
 
     def __init__(self, net, r3: R3Diffuser, so3: SO3Diffuser, cfg: SamplerConfig):
-        if cfg.integrator != "em":
-            raise NotImplementedError(f"integrator {cfg.integrator!r} is not ported yet")
-        if cfg.use_clash_force:
-            raise NotImplementedError("the clash force is not ported yet")
+        if cfg.integrator not in ("em", "heun"):
+            raise ValueError(f"unknown integrator {cfg.integrator!r}")
+        if cfg.integrator == "heun" and not cfg.ode:
+            raise ValueError("the Heun integrator runs on the probability-flow ODE (ode=True)")
         self.net = net
         self.r3 = r3
         self.so3 = so3
@@ -88,7 +113,7 @@ class EMSampler:
 
     @torch.no_grad()
     def sample(self, batch: dict, num_samples: int, generator: torch.Generator,
-               init=None, noise=None) -> dict:
+               init=None, noise=None, record_trajectory: bool = False) -> dict:
         """Dock `num_samples` poses of one padded complex.
 
         init: optional (pos0 [P, N, 3, 3], tr_update [P, 1, 3], rot_update
@@ -97,7 +122,8 @@ class EMSampler:
         generator's step noise.
 
         Returns pos [P, N, 3, 3], tr_update / rot_update / tr_score /
-        rot_score [P, 1, 3], energy [P], num_clashes [P]."""
+        rot_score [P, 1, 3], energy [P], num_clashes [P] (+ trajectory
+        [P, num_steps, N, 3, 3], the pose after every step)."""
         cfg = self.cfg
         ts, dt, tr_ns, rot_ns = self.schedule()
         batch = dict(batch)
@@ -119,19 +145,40 @@ class EMSampler:
                 return noise[which][s]
             return torch.randn(shape, generator=generator, device=pos.device)
 
-        for s, t in enumerate(ts):
-            out = self.net(batch, pos, t, generator=generator, scores_only=True)
-            z_rot, z_tr = normal(s, 0), normal(s, 1)
+        def updates(out, t, s, z_rot, z_tr):
             rot = (self.so3.reverse_step(out["rot_score"], t, dt, rot_ns[s], cfg.ode, z_rot)
                    if cfg.perturb_rot else zeros)
             tr = (self.r3.reverse_step(out["tr_score"], t, dt, tr_ns[s], cfg.ode, z_tr)
                   if cfg.perturb_tr else zeros)
+            return rot, tr
+
+        traj = []
+        for s, t in enumerate(ts):
+            out = self.net(batch, pos, t, generator=generator, scores_only=True)
+            z_rot, z_tr = normal(s, 0), normal(s, 1)
+            rot, tr = updates(out, t, s, z_rot, z_tr)
+            if cfg.integrator == "heun":
+                # corrector drift from the Euler-predicted pose at t - dt
+                # (float32, as the JAX schedule), increments averaged in the
+                # tangent space
+                t2 = float(max(np.float32(t) - np.float32(dt), np.float32(cfg.eps)))
+                pos2 = modify_coords(pos, lig_mask, rot, tr, cfg.center_mode)
+                out2 = self.net(batch, pos2, t2, generator=generator, scores_only=True)
+                rot2, tr2 = updates(out2, t2, s, z_rot, z_tr)
+                rot, tr = 0.5 * (rot + rot2), 0.5 * (tr + tr2)
             pos = modify_coords(pos, lig_mask, rot, tr, cfg.center_mode)
             tr_u = tr_u + tr
             rot_u = compose_axis_angle(rot_u, rot)
+            if cfg.use_clash_force:
+                force = clash_force(pos, lig_mask, batch["node_mask"])
+                pos = torch.where(lig_mask[:, None, None] > 0,
+                                  pos + force[:, None, None, :], pos)
+                tr_u = tr_u + force[:, None, :]
+            if record_trajectory:
+                traj.append(pos)
 
         out = self.net(batch, pos, ts[-1], generator=generator)
-        return {
+        result = {
             "pos": pos,
             "tr_update": tr_u,
             "rot_update": rot_u,
@@ -140,6 +187,9 @@ class EMSampler:
             "tr_score": out["tr_score"],
             "rot_score": out["rot_score"],
         }
+        if record_trajectory:
+            result["trajectory"] = torch.stack(traj, 1)
+        return result
 
     @staticmethod
     def rank_by_energy(results) -> int:

@@ -69,16 +69,36 @@ def test_forward_sampled_edges_two_poses():
     _compare(out_p, outs_j)
 
 
-@pytest.mark.parametrize("overrides", [
-    dict(use_pallas=True),                                             # no edge_table_kernel
-    dict(use_pallas=True, edge_table_kernel=True, select_kernel=True),  # not ported
+@pytest.mark.parametrize("route,shift", [
+    (dict(edge_table_kernel=False), 2.0),                     # edge_bins + torch geometry
+    (dict(edge_table_kernel=True, select_kernel=True), 2.0),  # select_topk
+    (dict(edge_table_kernel=True), 100.0),                    # energy: one pose all masked
 ])
-def test_kernel_path_refuses_configs_it_cannot_run(overrides):
-    """The kernel path has one route: the edge_table and fused_egcl kernels
-    (their plain versions on CPU tensors).  A config asking for another
-    route is refused when the net is built."""
-    from dfmdock_tpu_torch.config import ModelConfig
-    from dfmdock_tpu_torch.models.score_net import ScoreNet
-
-    with pytest.raises((ValueError, NotImplementedError)):
-        ScoreNet(ModelConfig(node_dim=32, edge_dim=16, inner_dim=16, depth=2, **overrides))
+def test_kernel_path_routes_match_jax(route, shift):
+    """Each route of the kernel path (the kernels' plain versions on CPU
+    tensors) against the JAX f32 XLA forward, two poses batched, JAX's own
+    Gumbel noise injected so that both select the same edges.  With the
+    ligand moved 100 A along z, the second pose has no receptor-ligand pair
+    within the cutoff: its energy is the empty masked mean, 0."""
+    jc, pc = tp.configs()
+    pc = dataclasses.replace(pc, use_pallas=True, **route)
+    params = JaxScoreNet(jc).init(jax.random.PRNGKey(4))
+    b = tp.padded(60, 40, seed=17)
+    n = b["pos"].shape[0]
+    pos2 = b["pos"].copy()
+    pos2[60:100] += np.float32([0.5, -1.0, shift])
+    outs_j, gumbels = [], []
+    for i, pos in enumerate((b["pos"], pos2)):
+        key = jax.random.PRNGKey(40 + i)
+        outs_j.append(JaxScoreNet(jc).apply(
+            params, tp.jax_batch({**b, "pos": pos}, 0.3), key, predict=True))
+        k_edges, _ = jax.random.split(key)
+        gumbels.append(np.asarray(jax.random.gumbel(k_edges, (n, n))))
+    net = tp.port_net(pc, params)
+    pb = tp.port_batch(b)
+    pos = torch.from_numpy(np.stack([b["pos"], pos2]))
+    with torch.no_grad():
+        out_p = net(pb, pos, 0.3, gumbel=torch.from_numpy(np.stack(gumbels)))
+    _compare(out_p, outs_j)
+    if shift > 20:
+        assert float(out_p["energy"][1]) == 0.0 and float(outs_j[1]["energy"]) == 0.0

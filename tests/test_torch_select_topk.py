@@ -1,0 +1,87 @@
+"""The port's fused edge selection (ops/select_topk) vs the JAX package's
+Pallas select_topk_fused (interpret mode), both given the same y = masked
+logits + jax.random.gumbel built by the JAX ops; the port's select route of
+select_edges against its torch.topk route on the same Gumbel noise (the
+CUDA kernel against its plain version is in test_torch_cuda_kernels.py).
+
+Exact: idx and edge_mask (selection only compares values; both sides break
+ties to the lower index)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dfmdock_tpu.ops.select_topk import _NEG_INF, select_topk_fused
+from dfmdock_tpu_torch.models.edges import select_edges
+from dfmdock_tpu_torch.ops.select_topk import select_topk, select_topk_plain
+
+
+def make_dist(n_tot, n_valid, seed=7, with_ties=False):
+    """CA distances of a random-walk chain (as tests/test_select_topk.py);
+    `with_ties` rounds them to multiples of 4 A."""
+    rng = np.random.RandomState(seed)
+    ca = np.cumsum(rng.randn(n_tot, 3) * 2 + [3.8, 0, 0], axis=0)
+    d = np.linalg.norm(ca[:, None] - ca[None, :], axis=-1).astype(np.float32)
+    if with_ties:
+        d = np.round(d / 4.0) * 4.0
+    return d, np.arange(n_tot) < n_valid
+
+
+def jax_y(key, dist, mask):
+    """select_topk_fused's own precompute: valid-masked -3 log d + Gumbel."""
+    n = dist.shape[0]
+    logits = -3.0 * jnp.log(jnp.maximum(jnp.asarray(dist), 1e-10))
+    y = jnp.where(jnp.asarray(mask)[None, :], logits, _NEG_INF) + jax.random.gumbel(key, (n, n))
+    return np.asarray(y)
+
+
+@pytest.mark.parametrize("n_tot,n_valid,ties", [
+    (128, 128, False),   # full
+    (128, 100, False),   # padded
+    (64, 25, False),     # tiny: fewer than knn + sample valid nodes
+    (128, 128, True),    # forced distance ties
+])
+def test_plain_matches_jax_kernel(n_tot, n_valid, ties):
+    idx_p, em_p, idx_j, em_j = [], [], [], []
+    ys, dists = [], []
+    for pose in range(2):
+        d, mask = make_dist(n_tot, n_valid, seed=7 + pose, with_ties=ties)
+        key = jax.random.PRNGKey(3 + pose)
+        idx, em = select_topk_fused(key, jnp.asarray(d), jnp.asarray(mask))
+        idx_j.append(np.asarray(idx))
+        em_j.append(np.asarray(em))
+        ys.append(jax_y(key, d, mask))
+        dists.append(d)
+    idx_p, em_p = select_topk_plain(torch.from_numpy(np.stack(dists)),
+                                    torch.from_numpy(np.stack(ys)), torch.from_numpy(mask))
+    idx_j, em_j = np.stack(idx_j), np.stack(em_j)
+    np.testing.assert_array_equal(em_p.numpy(), em_j)
+    on = em_j > 0.5
+    np.testing.assert_array_equal(idx_p.numpy()[on], idx_j[on])
+    assert on.sum() > 0
+
+
+@pytest.mark.parametrize("n_valid", [128, 100])
+def test_select_route_matches_topk_route(n_valid):
+    """Same distances, same injected Gumbel noise: both routes of the port's
+    select_edges pick the same edges (no ties in random geometry)."""
+    d, mask = make_dist(128, n_valid, seed=11)
+    dist = torch.from_numpy(np.stack([d, d * 1.5]))
+    node_mask = torch.from_numpy(mask)
+    gumbel = torch.from_numpy(np.array(jax.random.gumbel(jax.random.PRNGKey(1), (2, 128, 128))))
+    idx_t, em_t = select_edges(dist, node_mask, gumbel=gumbel)
+    idx_k, em_k = select_edges(dist, node_mask, gumbel=gumbel, kernel=True)
+    torch.testing.assert_close(em_k, em_t, rtol=0, atol=0)
+    torch.testing.assert_close(idx_k[em_t > 0.5], idx_t[em_t > 0.5], rtol=0, atol=0)
+
+
+def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
+    d, mask = make_dist(64, 64)
+    y = torch.from_numpy(jax_y(jax.random.PRNGKey(0), d, mask))
+    before = select_topk.launches
+    out = select_topk(torch.from_numpy(d), y, torch.from_numpy(mask))
+    ref = select_topk_plain(torch.from_numpy(d), y, torch.from_numpy(mask))
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert select_topk.launches == before
+

@@ -10,13 +10,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      N=448, K=60, C=256; three seeds) and on a small masked graph (N=64,
      40 valid nodes): the edge table, its bins-only mode (edge_bins, also
      bit-equal to the table's bins), edge selection (select_topk, exact,
-     with a forced-tie case), the EGCL layers and the pair energy head
-     (fused_energy, with one all-masked pose);
+     with a forced-tie case), the EGCL layers (masked edges' geometry
+     poisoned with NaN on the small graph, two launches bit-equal) and the
+     pair energy head (fused_energy, with one all-masked pose);
   4. ScoreNet parity: the forward through the kernels (card) against the
      forward through the plain versions (CPU), full width, seeded weights:
-     fast() at t in {0.1, 0.5, 0.9}, fast(select_kernel=True) with the same
-     injected Gumbel noise and fast(edge_table_kernel=False), full forwards
-     (energy through fused_energy);
+     fast() at t in {0.1, 0.5, 0.9} on injected edges, fast() selecting its
+     own edges from injected Gumbel noise, and fast(edge_table_kernel=False),
+     full forwards (energy through fused_energy);
   5. dock: the dock CLI in-process on 1AVX, 16 poses x 40 steps, after a
      warm-up run; steps/s, each kernel's time, launches and bound;
   6. sampler: denoising steps/s over EMSampler.sample alone (the same 16
@@ -32,8 +33,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      poses x 40 steps each; wall per complex and the rows written;
  10. kernel routes: 40-step samples of 16 poses under one generator seed
      through fast(), fast(select_kernel=True) and fast(edge_table_kernel=
-     False); where the select route's trajectory first leaves the torch.topk
-     route's (a finding, not a gate).
+     False).  Edge selection has one route (select_topk, ties to the lower
+     index), so the select route's trajectory must equal fast()'s bit for
+     bit (a gate); where the bins route's leaves it is reported.
 Each main path (phases 5, 8, 9 and the routes of 10) runs with the launch
 counts set to 0 just before it and read just after; a kernel of the path
 that did not launch fails the run.  The last line is {"ok": true,
@@ -110,9 +112,13 @@ F32_PARITY_REL = 1e-3
 # summation order differs between the kernel and PyTorch's own kernels).
 TIE_TOL = {E_DB: 1e-4, E_OB: 1e-3, E_TB: 1e-3, E_PB: 1e-3}  # Angstrom, degrees
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM rate, FP32 rate
-# outside the tensor cores (the kernels' FMAs are FP32).
+# outside the tensor cores (the FMAs of every kernel but fused_egcl), dense
+# bf16 on the tensor cores (fused_egcl's wgmma products).
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
+# fused_egcl takes each product in three bf16 passes (hi.hi + lo.hi + hi.lo)
+EGCL_PASSES = 3
 # f32 operations per edge in csrc/edge_table.cu, counted from the source:
 # two virtual CBs (2 x 24), two dihedrals (2 x 62), the planar angle (22),
 # distance and coord-diff (18), 96 boundary compares.  The bins-only mode
@@ -139,11 +145,11 @@ SOURCES = {
 }
 BUILD = ("edge_table", "fused_egcl", "energy_head", "select_topk")
 # the kernels each main path must launch
-DOCK_KERNELS = ("edge_table", "fused_egcl", "fused_egcl_coord", "fused_energy")
+DOCK_KERNELS = ("select_topk", "edge_table", "fused_egcl", "fused_egcl_coord", "fused_energy")
 ROUTE_KERNELS = {
-    "topk": DOCK_KERNELS,
-    "select": DOCK_KERNELS + ("select_topk",),
-    "bins": ("edge_bins", "fused_egcl", "fused_egcl_coord", "fused_energy"),
+    "fast": DOCK_KERNELS,
+    "select": DOCK_KERNELS,
+    "bins": ("select_topk", "edge_bins", "fused_egcl", "fused_egcl_coord", "fused_energy"),
 }
 RERANK_T, RERANK_DRAWS, ENERGY_DRAWS = 5, 4, 4
 SWEEP_IDS = ("1AVX", "7CEI")
@@ -390,12 +396,21 @@ def kernel_phase(raw, device):
             f"{int(e_args[2].sum())}, max abs {a_err:.3e} rel {r_err:.3e}, all-masked "
             f"pose 0, two launches bit-equal")
 
-        layer_args, coord = fused_inputs(idx, edge_mask, ebin_k, egeo_k, 256, seed, device)
+        egeo_l = egeo_k
+        if cx is not None:  # masked edges' geometry poisoned: selection, not * 0
+            egeo_l = egeo_k.clone()
+            egeo_l[~valid] = float("nan")
+        layer_args, coord = fused_inputs(idx, edge_mask, ebin_k, egeo_l, 256, seed, device)
         agg_k = fused_edge_layer(*layer_args)
         agg_c, trans_k = fused_edge_layer(*layer_args, coord)
+        agg_k2 = fused_edge_layer(*layer_args)
+        agg_c2, trans_k2 = fused_edge_layer(*layer_args, coord)
         agg_p = fused_edge_layer_plain(*layer_args)
         agg_cp, trans_p = fused_edge_layer_plain(*layer_args, coord)
         torch.cuda.synchronize()
+        if not (torch.equal(agg_k, agg_k2) and torch.equal(agg_c, agg_c2)
+                and torch.equal(trans_k, trans_k2)):
+            raise AssertionError("fused_egcl: two launches on the same inputs differ")
         for name, out, ref in (("fused_egcl agg", agg_k, agg_p),
                                ("fused_egcl_coord agg", agg_c, agg_cp),
                                ("fused_egcl_coord trans", trans_k, trans_p)):
@@ -406,8 +421,9 @@ def kernel_phase(raw, device):
                 raise AssertionError(f"{name}: rel err {r_err:.3e} > {F32_REL}")
             key = name.split()[0]
             errs[key] = max(errs[key], a_err)
-            log(f"# {name} P={num_poses} N={n_pad} seed={seed}: max abs {a_err:.3e} "
-                f"rel {r_err:.3e}")
+            log(f"# {name} P={num_poses} N={n_pad} seed={seed}"
+                f"{' (masked geometry NaN)' if cx is not None else ''}: max abs "
+                f"{a_err:.3e} rel {r_err:.3e}, two launches bit-equal")
         if main_inputs is None:
             main_inputs = {"table": args, "layer": layer_args, "coord": coord,
                            "select": (dist, y, batch["node_mask"])}
@@ -417,9 +433,9 @@ def kernel_phase(raw, device):
 def parity_phase(raw, device):
     """ScoreNet through the kernels (card) vs through the plain versions
     (CPU), same seeded weights, full forwards: fast() and
-    fast(edge_table_kernel=False) on the same injected edges,
-    fast(select_kernel=True) selecting its own edges from the same injected
-    Gumbel noise."""
+    fast(edge_table_kernel=False) on the same injected edges, fast()
+    selecting its own edges (select_topk on each side) from the same
+    injected Gumbel noise."""
     batch, pos, idx, edge_mask = edge_inputs(raw, N_PAD, 2, 7, device)
     native = batch["pos"][None]
     pos = torch.cat([native, pos[:1]]).contiguous()  # native + one random pose
@@ -432,7 +448,7 @@ def parity_phase(raw, device):
     cpu = lambda d: {k: v.cpu() for k, v in d.items()}
     routes = (
         ("fast()", ModelConfig.fast(), (0.1, 0.5, 0.9), "edges"),
-        ("fast(select_kernel=True)", ModelConfig.fast(select_kernel=True), (0.5,), "gumbel"),
+        ("fast() selecting", ModelConfig.fast(), (0.5,), "gumbel"),
         ("fast(edge_table_kernel=False)", ModelConfig.fast(edge_table_kernel=False), (0.5,),
          "edges"),
     )
@@ -547,6 +563,7 @@ def profile_phase(raw, device, steps=10, top=12):
     # device time alone, without the wrapper's host work that CUDA events
     # around the wrapper also see when the kernel is short
     for name, key in (("edge_table", "edge_table_kernel<true>"),
+                      ("select_topk", "select_topk_kernel"),
                       ("fused_egcl", "fused_egcl_kernel<false>"),
                       ("fused_egcl_coord", "fused_egcl_kernel<true>"),
                       ("fused_energy", "energy_")):
@@ -634,10 +651,11 @@ def sweep_phase(out_root):
 
 def route_phase(raw, device, steps=STEPS):
     """40-step samples of P poses from one generator seed through each
-    kernel route, the edges of every forward recorded.  The select route
-    breaks ties to the lower index where torch.topk's order is open, so its
-    trajectory may leave the topk route's: reported, not a gate.  Returns
-    the launches of each route."""
+    kernel route, the edges of every forward recorded.  Every route selects
+    through select_topk, so the select route (the JAX config's select_kernel
+    flag, which the port keeps only for equality) must reproduce fast()'s
+    edges and trajectory bit for bit; the bins route's torch geometry moves
+    its trajectory, which is reported.  Returns the launches of each route."""
     import dfmdock_tpu_torch.models.score_net as score_net
 
     batch = batch_to_tensors(complex_to_batch(raw), device)
@@ -651,7 +669,7 @@ def route_phase(raw, device, steps=STEPS):
 
     score_net.select_edges = recording
     try:
-        for name, mcfg in (("topk", ModelConfig.fast()),
+        for name, mcfg in (("fast", ModelConfig.fast()),
                            ("select", ModelConfig.fast(select_kernel=True)),
                            ("bins", ModelConfig.fast(edge_table_kernel=False))):
             cfg = DFMDockConfig(model=mcfg, sampler=SamplerConfig(num_steps=steps))
@@ -666,14 +684,14 @@ def route_phase(raw, device, steps=STEPS):
             log(f"# {name} route P={P} steps={steps}: {P * steps / wall:.2f} steps/s")
     finally:
         score_net.select_edges = select
-    ref = out["topk"]["trajectory"]
+    ref = out["fast"]["trajectory"]
     for name in ("select", "bins"):
         diff = (out[name]["trajectory"] - ref).abs().amax(dim=(0, 2, 3, 4))
         moved = torch.nonzero(diff > 0)
         first = int(moved[0]) + 1 if len(moved) else None
         # the first forward whose edges (on valid slots) differ
         first_edges = n_diff = n_sets = None
-        for step, ((i_a, m_a), (i_b, m_b)) in enumerate(zip(edges["topk"], edges[name]), 1):
+        for step, ((i_a, m_a), (i_b, m_b)) in enumerate(zip(edges["fast"], edges[name]), 1):
             valid = (m_a > 0.5) | (m_b > 0.5)
             bad = (i_a != i_b) & valid
             if bad.any() or not torch.equal(m_a, m_b):
@@ -682,29 +700,33 @@ def route_phase(raw, device, steps=STEPS):
                         != torch.sort(torch.where(valid, i_b, -1), -1)[0]).any(-1)
                 first_edges, n_diff, n_sets = step, int(bad.sum()), int(sets.sum())
                 break
-        log(f"# route finding: {name} vs topk over {steps} steps: "
+        log(f"# route {'check' if name == 'select' else 'finding'}: {name} vs fast over "
+            f"{steps} steps: "
             + ("identical trajectories" if first is None else
                f"poses first differ after step {first} ({float(diff[first - 1]):.3e} A, "
                f"{float(diff[-1]):.3e} A at the end)")
             + ("; identical edges in every forward" if first_edges is None else
                f"; edges first differ in forward {first_edges} ({n_diff} valid slots, "
                f"{n_sets} rows with another neighbour set)"))
+        if name == "select" and (first is not None or first_edges is not None):
+            raise AssertionError("the select route's edges or trajectory differ from fast()'s")
     return launches
 
 
 def bounds(inputs):
     """Least time the card could take for each kernel's work (ms): the bytes
     the function must move (each input read once, each output written once)
-    over the HBM rate, or its operations over the FP32 rate, whichever is
-    larger."""
+    over the HBM rate, or its operations over the rate of the units that do
+    them (FP32 for every kernel but fused_egcl, whose products run in three
+    bf16 passes on the tensor cores), whichever is larger."""
     table_args, layer_args = inputs["table"], inputs["layer"]
     idx = table_args[0]
     p, n, k = idx.shape
     e = p * n * k
     c = layer_args[4].shape[-1]
 
-    def bound(n_bytes, n_ops):
-        by_bytes, by_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_FLOP_S
+    def bound(n_bytes, n_ops, flop_s=FP32_FLOP_S):
+        by_bytes, by_ops = n_bytes / HBM_BYTES_S, n_ops / flop_s
         return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
     # edge_table: idx in; bins and geometry out; pos, res_id, asym_id once
@@ -715,11 +737,20 @@ def bounds(inputs):
     bins = bound(e * 4 * (1 + EBIN_WIDTH) + node_bytes, e * EDGE_BINS_OPS_PER_EDGE)
     # fused_egcl: per edge idx, mask, bins, radial (+ coord-diff on the coord
     # layer); a, B in and agg out; tables and weights once.  Operations: the
-    # [C] x [C, C] product per edge (twice on the coord layer).
+    # [C] x [C, C] product per edge (twice on the coord layer), three bf16
+    # passes each; the FP32 and single-pass bf16 figures are printed beside.
     tables = (SPATIAL_DIM + NUM_RELPOS_CLASSES) * c + c * c + 3 * c + 1
     base = 4 * (e * (3 + EBIN_WIDTH) + 3 * p * n * c + tables)
     coord_bytes = base + 4 * (e * 3 + c * c + 2 * c + p * n * 3)
     gemm = 2 * e * c * c
+    for name, products, n_bytes in (("fused_egcl", 1, base), ("fused_egcl_coord", 2, coord_bytes)):
+        ms = {rate: products * gemm / flops * 1e3 for rate, flops in (
+            ("three bf16 passes", BF16_FLOP_S / EGCL_PASSES), ("FP32", FP32_FLOP_S),
+            ("single-pass bf16", BF16_FLOP_S))}
+        log(f"# bound {name}: {products * gemm / 1e9:.1f} GFLOP; "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; bytes {n_bytes / HBM_BYTES_S * 1e3:.4f} ms; the row's bound: three bf16 "
+            "passes (the work the kernel does)")
     # fused_energy: hr, hl and the pair mask in, the LN affine and w2 once,
     # [P] out; operations over the pairs the mask keeps
     hr, _, pair_mask, *_ = inputs["energy"]
@@ -731,10 +762,9 @@ def bounds(inputs):
     dist, _, node_mask = inputs["select"]
     sp, sn = dist.shape[0], dist.shape[-1]
     select = bound(4 * 2 * dist.numel() + sn + sp * sn * k * 8, sp * sn * k * sn)
-    return {"edge_table": table, "fused_egcl": (max(base / HBM_BYTES_S, gemm / FP32_FLOP_S) * 1e3,
-                                                "operations"),
-            "fused_egcl_coord": (max(coord_bytes / HBM_BYTES_S, 2 * gemm / FP32_FLOP_S) * 1e3,
-                                 "operations"),
+    passes = BF16_FLOP_S / EGCL_PASSES
+    return {"edge_table": table, "fused_egcl": bound(base, gemm, passes),
+            "fused_egcl_coord": bound(coord_bytes, 2 * gemm, passes),
             "fused_energy": energy, "select_topk": select, "edge_bins": bins,
             "kept_pairs": kept}
 
@@ -785,7 +815,7 @@ def main():
         "edge_table": ("dock", launches), "fused_egcl": ("dock", launches),
         "fused_egcl_coord": ("dock", launches),
         "fused_energy": ("rank-by reranker", rank_launches),
-        "select_topk": ("select route", route_launches["select"]),
+        "select_topk": ("dock", launches),
         "edge_bins": ("bins route", route_launches["bins"]),
     }
     # fused_energy against its plain version on the inputs the path gave it

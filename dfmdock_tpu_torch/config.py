@@ -38,8 +38,9 @@ class ModelConfig:
     # build_edge_table); off = its bins-only mode (edge_bins) plus plain
     # torch geometry, the JAX package's XLA-built table.
     edge_table_kernel: bool = False
-    # With use_pallas: edge selection through the select_topk kernel (ties
-    # to the lower index; the same Gumbel draw as the torch.topk route).
+    # Kept for equality with the JAX config.  The port has one selection:
+    # ops/select_topk on every path (ties to the lower index, as the JAX
+    # package's select_edges and select_topk_fused).
     select_kernel: bool = False
     # Center on the ligand-CA centroid inside the net (mlsb lineage).
     center_in_net: bool = True

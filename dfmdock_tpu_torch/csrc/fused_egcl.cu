@@ -2,213 +2,607 @@
 // gate, masked K-sum, and on the last layer the coord MLP and its K-sum.
 //
 // Replaces the TPU kernel dfmdock_tpu/ops/fused_egcl.py:fused_edge_layer
-// (bodies `_kernel`, `_kernel_coord`, shared `_message_chain`).  The TPU
-// version gathered B[j] and the embedding rows with one-hot matrix products
-// and split f32 operands into bf16 pieces; here the gathers are plain loads
-// and every product is an f32 FMA.
+// (bodies `_kernel`, `_kernel_coord`, shared `_message_chain`).
 //
 // Bound: operations.  Per edge the [C] x [C, C] product with W_l1 (and W_c0
-// on the coord layer) is 2 C^2 FLOPs; at N = 448, K = 60, C = 256 that is
-// 3.5 GFLOP per pose per product, against ~0.5 MB of inputs per pose.
+// on the coord layer) is 2 C^2 FLOPs: at P = 16, N = 448, K = 60, C = 256
+// that is 56 GFLOP per product, against ~36 MB of inputs and outputs.
 //
-// Design: one block of C threads per (pose, node i); thread c owns output
-// column c for all K edges, so the K accumulators live in registers.  The
-// K x C message tile (61 KB at K = 60, C = 256) sits in dynamic shared
-// memory and is read as float4 broadcasts, one 16-byte load per four FMAs;
-// the weight column streams from L2, where W (256 KB) stays resident.
+// Design, for Hopper's tensor cores (sm_90a):
+// - Both products run on `wgmma.mma_async` m64n256k16, bf16 x bf16 -> f32,
+//   each in three passes on bf16 pieces, hi.hi + lo.hi + hi.lo with
+//   x = hi + lo, hi = bf16_rn(x), lo = bf16_rn(x - hi): the TPU kernel's
+//   `_split_f32` / `_dot3`, with a round-to-nearest split.  The dropped
+//   lo.lo term leaves ~2^-16 relative per product term: f32-grade.
+// - One node's K <= 64 edges are one 64-row tile; rows K..63 and masked
+//   edges are written as zero rows and never reach a sum.  A block holds
+//   two warpgroups, one node each, so every slice of W serves 128 rows.
+// - W (hi + lo, 256 KB of bf16) does not fit in shared memory, so it streams
+//   through a three-stage ring in K-slices of 16 rows (16 KB each).  The
+//   wrapper lays the weight out once per call in the order the slice sits in
+//   shared memory (wgmma's no-swizzle K-major core matrices, hi then lo per
+//   slice), so each slice is one contiguous bulk copy (`cp.async.bulk`, the
+//   TMA engine) completing on an mbarrier; every block reads the same W,
+//   which stays in L2.  Thread 0 refills a stage once both warpgroups have
+//   released it.  Blocks are persistent: one per SM, walking node pairs.
+// - The gather binds before the tensor cores: pre needs six C-wide f32 rows
+//   per edge.  So it is cut along K like W and pipelined: `cp.async` copies
+//   the rows' 16 columns of slice s + 2 into a staging buffer while slice
+//   s + 1 of pre = a_i + B[j] + T_sp[4 bins] + T_p[relpos] + radial * w_r is
+//   assembled from the staged rows (silu, then hi / lo pieces into the
+//   other of two A slice buffers) and the wgmmas of slice s run.  No register holds a load in flight.  On the
+//   layers without the coord MLP the spatial tables (T_sp, 100 KB) sit in
+//   shared memory and only B[j] and T_p are staged; the coord layer needs
+//   the room for the m2g tile, and stages all six rows.
+// - Epilogue in registers: bias and silu on the accumulator, the gate's row
+//   dot by quad shuffles, the masked K-sum by shuffles within a warp and a
+//   fixed-order sum of the four warps through shared memory: no float
+//   atomics, the same bits on every run.  On the coord layer m2g goes back
+//   to shared memory as the hi / lo A tile of the second product; then
+//   w = clip(silu(.) . w_c1, +-2) and trans = sum_k w * cdn.
 // Masked edges leave the sums by selection, never by multiplying with 0.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int KMAX = 64;     // edge rows held per block
-constexpr int MAX_C = 256;   // threads per block = C
+constexpr int C = 256;                  // channels (wgmma N, and the product depth)
+constexpr int ROWS = 64;                // edge rows per node tile (wgmma M)
+constexpr int KS = 16;                  // W rows (product depth) per ring stage
+constexpr int NSLICE = C / KS;          // slices per product
+constexpr int STAGES = 3;
+constexpr int PIECE = KS * C;           // bf16 elements of one piece (hi or lo) of a W slice
+constexpr int SLICE_BYTES = 2 * PIECE * 2;
+constexpr int ASLICE = ROWS * KS;       // bf16 elements of one piece of an A slice buffer
+constexpr int TILE = ROWS * C;          // bf16 elements of one piece of a node's A tile
+constexpr int THREADS = 256;            // two warpgroups
+constexpr int SPATIAL_ROWS = 100;       // rows of T_sp
 constexpr int EBIN = 5, EGEO = 4;
 constexpr int E_DB = 0, E_OB = 1, E_TB = 2, E_PB = 3, E_RP = 4;
 constexpr int OMEGA_OFFSET = 40, THETA_OFFSET = 64, PHI_OFFSET = 88;
 constexpr int G_RAD = 0, G_CD = 1;
 
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
+// no-swizzle K-major operand layout: 8 x 8 core matrices of 128 contiguous
+// bytes; LBO steps to the next core matrix along K, SBO to the next 8 rows
+constexpr uint32_t LBO = 128;
+constexpr uint32_t SBO_TILE = (C / 8) * 128;   // A tile: 32 core matrices per 8 rows
+constexpr uint32_t SBO_SLICE = (KS / 8) * 128; // W slice and A slice: 2 per 8 rows
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+struct Meta {          // per warpgroup: the node's edges
+  int bin[ROWS * EBIN];
+  int j[ROWS];
+  int valid[ROWS];
+  float geo[ROWS * EGEO];
+  float a[C];          // a_i
+  float red[4 * C];    // per-warp column sums
+  float w[ROWS];       // coord weight per edge
+};
+
+// Staged rows per edge: B[j] and T_p, and on the coord layer the four T_sp
+// rows (the other layers read T_sp from shared memory).
+constexpr int T_B = 0, T_P = 1, T_SP = 2;
+constexpr int staged_tables(bool coord) { return coord ? 6 : 2; }
+
+// Shared memory, in bytes: the W ring; per warpgroup its area (two A slice
+// buffers and two staging buffers; on the coord layer the m2g tile later);
+// T_sp on the other layers; the two Metas; w_r; the ring's barriers.
+template <bool COORD>
+struct Layout {
+  static constexpr int ring = 0;
+  static constexpr int abufs = 2 * 2 * ASLICE * 2;                  // [buf][hi, lo]
+  static constexpr int stage_bytes = staged_tables(COORD) * ROWS * KS * 4;
+  static constexpr int area = STAGES * SLICE_BYTES;
+  static constexpr int area_bytes =
+      COORD ? 2 * TILE * 2 : abufs + 2 * stage_bytes;
+  static_assert(abufs + 2 * stage_bytes <= area_bytes, "the staging exceeds the area");
+  static constexpr int tsp = area + 2 * area_bytes;
+  static constexpr int meta = tsp + (COORD ? 0 : SPATIAL_ROWS * C * 4);
+  static constexpr int wr = meta + 2 * (int)sizeof(Meta);
+  static constexpr int bars = wr + C * 4;
+  static constexpr int bytes = bars + 2 * STAGES * 8;
+  static_assert(bytes <= 232448, "more shared memory than a block may use");
+};
+
+__device__ __forceinline__ float silu(float x) { return __fdividef(x, 1.0f + __expf(-x)); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// acc[r] = sum_k s_in[r][k] * W[k][c] for all KMAX rows (rows >= K are
-// padding whose results are never read).
-__device__ __forceinline__ void rows_times_w(const float* s_in, const float* __restrict__ W,
-                                             int C, int c, float (&acc)[KMAX]) {
-#pragma unroll
-  for (int r = 0; r < KMAX; ++r) acc[r] = 0.0f;
-  for (int k = 0; k < C; k += 4) {
-    const float w0 = __ldg(W + (k + 0) * C + c);
-    const float w1 = __ldg(W + (k + 1) * C + c);
-    const float w2 = __ldg(W + (k + 2) * C + c);
-    const float w3 = __ldg(W + (k + 3) * C + c);
-#pragma unroll
-    for (int r = 0; r < KMAX; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(s_in + r * C + k);
-      float a = acc[r];
-      a = fmaf(v.x, w0, a);
-      a = fmaf(v.y, w1, a);
-      a = fmaf(v.z, w2, a);
-      a = fmaf(v.w, w3, a);
-      acc[r] = a;
-    }
+__device__ __forceinline__ void bar_wg(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {   // all but the newest group landed
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
 }
 
-// out[r] = sum_c s_in[r][c] * w[c] for r < K, one warp per row.
-__device__ __forceinline__ void row_dots(const float* s_in, const float* __restrict__ w, int C,
-                                         int K, float* out, float bias, int mode) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  for (int r = warp; r < K; r += nwarps) {
-    float s = 0.0f;
-    for (int cc = lane; cc < C; cc += 32) s += s_in[r * C + cc] * (w ? w[cc] : 1.0f);
-    s = warp_sum(s);
-    if (lane == 0) {
-      s += bias;
-      out[r] = mode == 0 ? 1.0f / (1.0f + expf(-s)) : fminf(fmaxf(s, -2.0f), 2.0f);
+// one bulk copy of a W slice (hi + lo) into a ring stage, completing on `bar`
+__device__ __forceinline__ void load_slice(void* dst, const void* src, uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(SLICE_BYTES)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(SLICE_BYTES), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t sbo) {
+  // start address, LBO and SBO in 16-byte units; base offset 0; layout 0 (no swizzle)
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(LBO >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+#define D8(i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 x 256 f32, fragment] += A[64 x 16] . B[16 x 256], both from shared memory
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
+      "%123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72),
+        D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// element offset of (row r, column k) in a no-swizzle K-major tile that is
+// `width` columns wide
+__device__ __forceinline__ int core_off(int r, int k, int width) {
+  return (((r >> 3) * (width / 8) + (k >> 3)) << 6) + ((r & 7) << 3) + (k & 7);
+}
+
+struct Ring {
+  uint8_t* smem;
+  uint64_t* full;
+  uint64_t* empty;
+  const uint8_t* w1;   // prepared W_l1: [NSLICE][hi, lo][PIECE] bf16
+  const uint8_t* wc;   // prepared W_c0 (coord layer)
+  int per_pair;        // slices per node pair: NSLICE x products
+  int total;           // slices this block consumes
+  int seq;             // next slice to consume
+
+  __device__ __nv_bfloat16* stage(int st) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + st * SLICE_BYTES);
+  }
+
+  __device__ void issue(int v) {   // thread 0: load slice number v
+    if (v >= total) return;
+    const int st = v % STAGES;
+    if (v >= STAGES) mbar_wait(&empty[st], ((v - STAGES) / STAGES) & 1);
+    const int in_pair = v % per_pair;
+    const uint8_t* w = in_pair < NSLICE ? w1 : wc;
+    load_slice(stage(st), w + (size_t)(in_pair % NSLICE) * SLICE_BYTES, &full[st]);
+  }
+
+  // d = A . W over the NSLICE slices, three passes each.  a_at(sl) is the hi
+  // piece of slice sl's A columns (lo at + lo_off elements, rows SBO `sbo`
+  // apart); between(sl) runs while slice sl's wgmmas are in flight.
+  template <class AAt, class Between>
+  __device__ void product(float (&d)[128], AAt a_at, int lo_off, uint32_t sbo,
+                          Between between) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+#pragma unroll 1
+    for (int sl = 0; sl < NSLICE; ++sl) {
+      const int u = seq++;
+      const int st = u % STAGES;
+      mbar_wait(&full[st], (u / STAGES) & 1);
+      const __nv_bfloat16* a = a_at(sl);
+      const __nv_bfloat16* w = stage(st);
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {
+        const uint64_t ah = desc(a + kk * 128, sbo);
+        const uint64_t al = desc(a + lo_off + kk * 128, sbo);
+        const uint64_t bh = desc(w + kk * 128, SBO_SLICE);
+        const uint64_t bl = desc(w + PIECE + kk * 128, SBO_SLICE);
+        wgmma(d, al, bh);
+        wgmma(d, ah, bl);
+        wgmma(d, ah, bh);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      between(sl);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(d);
+      mbar_arrive(&empty[st]);
+      if (threadIdx.x == 0) issue(u + STAGES);
     }
   }
-}
+};
+
+// Slices of pre for one warpgroup's node: `issue` stages the rows' KS
+// columns of slice sl (one cp.async group per slice, empty past the last),
+// `build` writes slice sl of A = silu(pre) as bf16 hi / lo.  Masked rows
+// are neither staged nor read: they are written as 0.
+template <bool COORD>
+struct Gather {
+  static constexpr int NT = staged_tables(COORD);
+  const Meta& m;
+  const float* wr_s;      // w_r, shared memory
+  const float* tsp_s;     // T_sp, shared memory (not on the coord layer)
+  const float* B;
+  const float* t_sp;
+  const float* t_p;
+  int64_t pose_base;
+  float* stage;           // [2][NT][ROWS][KS] f32
+  __nv_bfloat16* abuf;    // [2][hi, lo][ASLICE]
+  int tid;
+
+  __device__ const float* row_src(int t, int r) const {
+    const int* eb = m.bin + r * EBIN;
+    switch (t) {
+      case T_B: return B + (pose_base + m.j[r]) * C;
+      case T_P: return t_p + eb[E_RP] * C;
+      case T_SP: return t_sp + eb[E_DB] * C;
+      case T_SP + 1: return t_sp + (OMEGA_OFFSET + eb[E_OB]) * C;
+      case T_SP + 2: return t_sp + (THETA_OFFSET + eb[E_TB]) * C;
+      default: return t_sp + (PHI_OFFSET + eb[E_PB]) * C;
+    }
+  }
+
+  __device__ void issue(int sl) const {
+    if (sl < NSLICE) {
+      float* dst = stage + (sl & 1) * NT * ROWS * KS;
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int h = 0; h < ROWS * KS / 4 / 128; ++h) {
+          const int chunk = tid + 128 * h, r = chunk / (KS / 4), part = chunk % (KS / 4);
+          if (m.valid[r])
+            cp_async16(dst + (t * ROWS + r) * KS + 4 * part, row_src(t, r) + sl * KS + 4 * part);
+        }
+    }
+    cp_async_commit();
+  }
+
+  // lane = (row of 8, four columns): the 8 lanes of a shared-memory phase
+  // read two rows, so T_sp's gathered rows conflict at most two ways
+  __device__ void build(int sl, int warp, int lane) const {
+    const int quad = lane & 3, c4 = 4 * quad, col = sl * KS + c4;
+    __nv_bfloat16* buf = abuf + (sl & 1) * 2 * ASLICE;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + 8 * h + (lane >> 2);
+      const float* st = stage + (sl & 1) * NT * ROWS * KS + r * KS + c4;
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (m.valid[r]) {
+        const int* eb = m.bin + r * EBIN;
+        float4 x[6];
+        x[0] = *reinterpret_cast<const float4*>(st + T_B * ROWS * KS);
+        if (COORD) {
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            x[1 + t] = *reinterpret_cast<const float4*>(st + (T_SP + t) * ROWS * KS);
+        } else {
+          x[1] = *reinterpret_cast<const float4*>(tsp_s + eb[E_DB] * C + col);
+          x[2] = *reinterpret_cast<const float4*>(tsp_s + (OMEGA_OFFSET + eb[E_OB]) * C + col);
+          x[3] = *reinterpret_cast<const float4*>(tsp_s + (THETA_OFFSET + eb[E_TB]) * C + col);
+          x[4] = *reinterpret_cast<const float4*>(tsp_s + (PHI_OFFSET + eb[E_PB]) * C + col);
+        }
+        x[5] = *reinterpret_cast<const float4*>(st + T_P * ROWS * KS);
+        const float4 ai = *reinterpret_cast<const float4*>(m.a + col);
+        const float4 wr = *reinterpret_cast<const float4*>(wr_s + col);
+        const float rad = m.geo[r * EGEO + G_RAD];
+        float4 s = ai;
+#pragma unroll
+        for (int t = 0; t < 6; ++t) s.x += x[t].x, s.y += x[t].y, s.z += x[t].z, s.w += x[t].w;
+        v[0] = silu(fmaf(rad, wr.x, s.x));
+        v[1] = silu(fmaf(rad, wr.y, s.y));
+        v[2] = silu(fmaf(rad, wr.z, s.z));
+        v[3] = silu(fmaf(rad, wr.w, s.w));
+      }
+      uint2 hi, lo;
+      split(v[0], v[1], hi.x, lo.x);
+      split(v[2], v[3], hi.y, lo.y);
+      const int off = core_off(r, c4, KS);
+      *reinterpret_cast<uint2*>(buf + off) = hi;
+      *reinterpret_cast<uint2*>(buf + ASLICE + off) = lo;
+    }
+  }
+};
 
 template <bool COORD>
-__global__ void __launch_bounds__(MAX_C)
+__global__ void __launch_bounds__(THREADS, 1)
 fused_egcl_kernel(const int* __restrict__ idx, const float* __restrict__ edge_mask,
                   const int* __restrict__ ebin, const float* __restrict__ egeo,
                   const float* __restrict__ a, const float* __restrict__ B,
                   const float* __restrict__ t_sp, const float* __restrict__ t_p,
-                  const float* __restrict__ w_r, const float* __restrict__ w_l1,
+                  const float* __restrict__ w_r, const uint8_t* __restrict__ w_l1,
                   const float* __restrict__ b_l1, const float* __restrict__ w_att,
-                  const float* __restrict__ b_att, const float* __restrict__ w_c0,
+                  const float* __restrict__ b_att, const uint8_t* __restrict__ w_c0,
                   const float* __restrict__ b_c0, const float* __restrict__ w_c1,
-                  float* __restrict__ agg, float* __restrict__ trans, int N, int K, int C) {
-  extern __shared__ float4 smem4[];
-  float* s_buf = reinterpret_cast<float*>(smem4);            // [KMAX][C]
-  int* s_bin = reinterpret_cast<int*>(s_buf + KMAX * C);      // [KMAX][EBIN]
-  int* s_j = s_bin + KMAX * EBIN;                             // [KMAX]
-  int* s_valid = s_j + KMAX;                                  // [KMAX]
-  float* s_geo = reinterpret_cast<float*>(s_valid + KMAX);    // [KMAX][EGEO]
-  float* s_gate = s_geo + KMAX * EGEO;                        // [KMAX]
-  float* s_w = s_gate + KMAX;                                 // [KMAX]
+                  float* __restrict__ agg, float* __restrict__ trans, int nodes, int N,
+                  int K) {
+  using L = Layout<COORD>;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const int tid = threadIdx.x & 127, wg = threadIdx.x >> 7;
+  const int warp = tid >> 5, lane = tid & 31;
+  __nv_bfloat16* area = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::area + wg * L::area_bytes);
+  Meta& m = reinterpret_cast<Meta*>(smem_raw + L::meta)[wg];
+  float* wr_s = reinterpret_cast<float*>(smem_raw + L::wr);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + L::bars);
+  float* tsp_s = reinterpret_cast<float*>(smem_raw + L::tsp);
 
-  const int64_t row = blockIdx.x;  // pose * N + i
-  const int64_t pose_base = (row / N) * N;
-  const int c = threadIdx.x;
-
-  // per-edge fields of this node; padding rows are invalid edges to node 0
-  for (int t = c; t < KMAX * EBIN; t += blockDim.x)
-    s_bin[t] = t < K * EBIN ? ebin[row * K * EBIN + t] : 0;
-  for (int t = c; t < KMAX * EGEO; t += blockDim.x)
-    s_geo[t] = t < K * EGEO ? egeo[row * K * EGEO + t] : 0.0f;
-  for (int t = c; t < KMAX; t += blockDim.x) {
-    s_j[t] = t < K ? idx[row * K + t] : 0;
-    s_valid[t] = t < K ? (edge_mask[row * K + t] > 0.5f ? 1 : 0) : 0;
-    s_gate[t] = 0.0f;
-  }
-  __syncthreads();
-
-  // 1. pre = a_i + B[j] + T_sp[4 bins] + T_p[relpos] + radial * w_r; silu
-  const float a_c = a[row * C + c], wr_c = w_r[c];
-  for (int r = 0; r < KMAX; ++r) {
-    float v = 0.0f;
-    if (r < K) {
-      const int* eb = s_bin + r * EBIN;
-      v = a_c + B[(pose_base + s_j[r]) * C + c];
-      v += t_sp[eb[E_DB] * C + c];
-      v += t_sp[(OMEGA_OFFSET + eb[E_OB]) * C + c];
-      v += t_sp[(THETA_OFFSET + eb[E_TB]) * C + c];
-      v += t_sp[(PHI_OFFSET + eb[E_PB]) * C + c];
-      v += t_p[eb[E_RP] * C + c];
-      v = fmaf(s_geo[r * EGEO + G_RAD], wr_c, v);
-      v = silu(v);
+  const int pairs = (nodes + 1) / 2;
+  const int my_pairs = blockIdx.x < pairs ? (pairs - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  Ring ring{smem_raw + L::ring, bars, bars + STAGES, w_l1, w_c0, NSLICE * (COORD ? 2 : 1),
+            0, 0};
+  ring.total = my_pairs * ring.per_pair;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&ring.full[st], 1);
+      mbar_init(&ring.empty[st], THREADS);
     }
-    s_buf[r * C + c] = v;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  for (int t = threadIdx.x; t < C / 4; t += THREADS)
+    reinterpret_cast<float4*>(wr_s)[t] = reinterpret_cast<const float4*>(w_r)[t];
+  if (!COORD)
+    for (int t = threadIdx.x; t < SPATIAL_ROWS * C / 4; t += THREADS)
+      reinterpret_cast<float4*>(tsp_s)[t] = __ldg(reinterpret_cast<const float4*>(t_sp) + t);
   __syncthreads();
+  if (threadIdx.x == 0)
+    for (int v = 0; v < STAGES; ++v) ring.issue(v);
 
-  // 2. m2 = silu(pre @ W_l1 + b_l1)
-  float acc[KMAX];
-  rows_times_w(s_buf, w_l1, C, c, acc);
-  __syncthreads();
-  const float bl1 = b_l1[c];
+  const float bias_att = b_att[0];
+  float d[128];
+  for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+    const int node = 2 * pair + wg;
+    const bool live = node < nodes;
+    const int64_t row = live ? node : 0;
+    const int64_t pose_base = (row / N) * N;
+
+    // 1. the node's edges and a_i; rows K..63, masked edges and a missing
+    //    node are invalid
+    bar_wg(wg);
+    for (int t = tid; t < ROWS; t += 128) {
+      const bool ok = live && t < K && edge_mask[row * K + t] > 0.5f;
+      m.valid[t] = ok;
+      m.j[t] = ok ? idx[row * K + t] : 0;
+    }
+    for (int t = tid; t < ROWS * EBIN; t += 128)
+      m.bin[t] = t < K * EBIN ? ebin[row * K * EBIN + t] : 0;
+    for (int t = tid; t < ROWS * EGEO; t += 128)
+      m.geo[t] = t < K * EGEO ? egeo[row * K * EGEO + t] : 0.0f;
+    if (tid < C / 4)
+      reinterpret_cast<float4*>(m.a)[tid] = reinterpret_cast<const float4*>(a + row * C)[tid];
+    bar_wg(wg);
+
+    // 2. m2 = silu(silu(pre) . W_l1 + b_l1); the slices of silu(pre) are
+    //    built one ahead of the wgmmas and staged two ahead
+    const Gather<COORD> g{m, wr_s, tsp_s, B, t_sp, t_p, pose_base,
+                          reinterpret_cast<float*>(area + 2 * 2 * ASLICE), area, tid};
+    g.issue(0);
+    g.issue(1);
+    cp_async_wait_one();
+    bar_wg(wg);
+    g.build(0, warp, lane);
+    fence_async_smem();
+    bar_wg(wg);
+    g.issue(2);
+    ring.product(
+        d, [&](int sl) { return area + (sl & 1) * 2 * ASLICE; }, ASLICE, SBO_SLICE,
+        [&](int sl) {
+          if (sl + 1 < NSLICE) {
+            cp_async_wait_one();
+            bar_wg(wg);
+            g.build(sl + 1, warp, lane);
+            fence_async_smem();
+            bar_wg(wg);
+            g.issue(sl + 3);
+          }
+        });
+
+    // 3. gate = sigmoid(m2 . w_att + b_att)
+    const int r_a = 16 * warp + (lane >> 2), r_b = r_a + 8, cq = 2 * (lane & 3);
+    float s_a = 0.0f, s_b = 0.0f;
 #pragma unroll
-  for (int r = 0; r < KMAX; ++r) s_buf[r * C + c] = silu(acc[r] + bl1);
-  __syncthreads();
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * i + cq;
+      const float2 bb = *reinterpret_cast<const float2*>(b_l1 + c);
+      const float2 ww = *reinterpret_cast<const float2*>(w_att + c);
+      d[4 * i] = silu(d[4 * i] + bb.x);
+      d[4 * i + 1] = silu(d[4 * i + 1] + bb.y);
+      d[4 * i + 2] = silu(d[4 * i + 2] + bb.x);
+      d[4 * i + 3] = silu(d[4 * i + 3] + bb.y);
+      s_a += d[4 * i] * ww.x + d[4 * i + 1] * ww.y;
+      s_b += d[4 * i + 2] * ww.x + d[4 * i + 3] * ww.y;
+    }
+    s_a += __shfl_xor_sync(0xffffffffu, s_a, 1);
+    s_a += __shfl_xor_sync(0xffffffffu, s_a, 2);
+    s_b += __shfl_xor_sync(0xffffffffu, s_b, 1);
+    s_b += __shfl_xor_sync(0xffffffffu, s_b, 2);
+    const float g_a = __fdividef(1.0f, 1.0f + __expf(-(s_a + bias_att)));
+    const float g_b = __fdividef(1.0f, 1.0f + __expf(-(s_b + bias_att)));
+    const bool v_a = m.valid[r_a], v_b = m.valid[r_b];
 
-  // 3. gate = sigmoid(m2 . w_att + b_att)
-  row_dots(s_buf, w_att, C, K, s_gate, b_att[0], 0);
-  __syncthreads();
-
-  // 4. agg = sum_k valid ? gate * m2 : 0   (the coord branch keeps m2g)
-  float sum = 0.0f;
-  for (int r = 0; r < K; ++r) {
-    const float g = s_buf[r * C + c] * s_gate[r];
-    if (COORD) s_buf[r * C + c] = g;
-    if (s_valid[r]) sum += g;
-  }
-  agg[row * C + c] = sum;
-  if (!COORD) return;
-  __syncthreads();
-
-  // 5. w = clip(silu(m2g @ W_c0 + b_c0) . w_c1, +-2);  trans = sum valid ? w * cdn : 0
-  rows_times_w(s_buf, w_c0, C, c, acc);
-  __syncthreads();
-  const float bc0 = b_c0[c], wc1 = w_c1[c];
+    // 4. agg = sum_k valid ? gate * m2 : 0, in a fixed order
 #pragma unroll
-  for (int r = 0; r < KMAX; ++r) s_buf[r * C + c] = silu(acc[r] + bc0) * wc1;
-  __syncthreads();
-  row_dots(s_buf, nullptr, C, K, s_w, 0.0f, 1);
-  __syncthreads();
-  if (c < 3) {
-    float t = 0.0f;
-    for (int r = 0; r < K; ++r)
-      if (s_valid[r]) t += s_w[r] * s_geo[r * EGEO + G_CD + c];
-    trans[row * 3 + c] = t;
-  }
-}
+    for (int i = 0; i < 32; ++i) {
+      float c0 = 0.0f, c1 = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float g = e ? g_b : g_a;
+        const bool ok = e ? v_b : v_a;
+        d[4 * i + 2 * e] *= g;
+        d[4 * i + 2 * e + 1] *= g;
+        if (ok) c0 += d[4 * i + 2 * e], c1 += d[4 * i + 2 * e + 1];
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+        c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+      }
+      if (lane < 4) {
+        m.red[warp * C + 8 * i + cq] = c0;
+        m.red[warp * C + 8 * i + cq + 1] = c1;
+      }
+    }
+    bar_wg(wg);   // also: every warp's wgmma reads of the A buffers are done
+    if (live) {
+      const int c = 2 * tid;
+      float2 out;
+      out.x = ((m.red[c] + m.red[C + c]) + m.red[2 * C + c]) + m.red[3 * C + c];
+      out.y = ((m.red[c + 1] + m.red[C + c + 1]) + m.red[2 * C + c + 1]) + m.red[3 * C + c + 1];
+      *reinterpret_cast<float2*>(agg + row * C + c) = out;
+    }
+    if (!COORD) continue;
 
-size_t smem_bytes(int C) {
-  return sizeof(float) * KMAX * C + sizeof(int) * KMAX * (EBIN + 2) +
-         sizeof(float) * KMAX * (EGEO + 2);
+    // 5. m2g as the A tile of the coord MLP
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * i + cq;
+      uint32_t hi, lo;
+      split(d[4 * i], d[4 * i + 1], hi, lo);
+      *reinterpret_cast<uint32_t*>(area + core_off(r_a, c, C)) = hi;
+      *reinterpret_cast<uint32_t*>(area + TILE + core_off(r_a, c, C)) = lo;
+      split(d[4 * i + 2], d[4 * i + 3], hi, lo);
+      *reinterpret_cast<uint32_t*>(area + core_off(r_b, c, C)) = hi;
+      *reinterpret_cast<uint32_t*>(area + TILE + core_off(r_b, c, C)) = lo;
+    }
+    fence_async_smem();
+    bar_wg(wg);
+
+    // 6. w = clip(silu(m2g . W_c0 + b_c0) . w_c1, +-2); trans = sum valid ? w * cdn : 0
+    ring.product(
+        d, [&](int sl) { return area + core_off(0, sl * KS, C); }, TILE, SBO_TILE,
+        [](int) {});
+    s_a = 0.0f, s_b = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * i + cq;
+      const float2 bb = *reinterpret_cast<const float2*>(b_c0 + c);
+      const float2 ww = *reinterpret_cast<const float2*>(w_c1 + c);
+      s_a += silu(d[4 * i] + bb.x) * ww.x + silu(d[4 * i + 1] + bb.y) * ww.y;
+      s_b += silu(d[4 * i + 2] + bb.x) * ww.x + silu(d[4 * i + 3] + bb.y) * ww.y;
+    }
+    s_a += __shfl_xor_sync(0xffffffffu, s_a, 1);
+    s_a += __shfl_xor_sync(0xffffffffu, s_a, 2);
+    s_b += __shfl_xor_sync(0xffffffffu, s_b, 1);
+    s_b += __shfl_xor_sync(0xffffffffu, s_b, 2);
+    if ((lane & 3) == 0) {
+      m.w[r_a] = fminf(fmaxf(s_a, -2.0f), 2.0f);
+      m.w[r_b] = fminf(fmaxf(s_b, -2.0f), 2.0f);
+    }
+    bar_wg(wg);
+    if (live && tid < 3) {
+      float t = 0.0f;
+      for (int r = 0; r < K; ++r)
+        if (m.valid[r]) t += m.w[r] * m.geo[r * EGEO + G_CD + tid];
+      trans[row * 3 + tid] = t;
+    }
+  }
 }
 
 template <bool COORD>
 int launch(const int* idx, const float* edge_mask, const int* ebin, const float* egeo,
            const float* a, const float* B, const float* t_sp, const float* t_p,
-           const float* w_r, const float* w_l1, const float* b_l1, const float* w_att,
-           const float* b_att, const float* w_c0, const float* b_c0, const float* w_c1,
-           float* agg, float* trans, int P, int N, int K, int C, cudaStream_t stream) {
-  const size_t smem = smem_bytes(C);
+           const float* w_r, const void* w_l1, const float* b_l1, const float* w_att,
+           const float* b_att, const void* w_c0, const float* b_c0, const float* w_c1,
+           float* agg, float* trans, int P, int N, int K, cudaStream_t stream) {
+  const int smem = Layout<COORD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(fused_egcl_kernel<COORD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (int64_t)P * N;
-  if (blocks > 0)
-    fused_egcl_kernel<COORD><<<(unsigned)blocks, C, smem, stream>>>(
-        idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l1, w_att, b_att, w_c0,
-        b_c0, w_c1, agg, trans, N, K, C);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int64_t nodes = (int64_t)P * N;
+  const int64_t pairs = (nodes + 1) / 2;
+  if (nodes > 0)
+    fused_egcl_kernel<COORD><<<(unsigned)(pairs < sms ? pairs : sms), THREADS, smem, stream>>>(
+        idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r,
+        static_cast<const uint8_t*>(w_l1), b_l1, w_att, b_att,
+        static_cast<const uint8_t*>(w_c0), b_c0, w_c1, agg, trans, (int)nodes, N, K);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// w_l1 / w_c0: the weights prepared by ops/fused_egcl.prepare_weight, bf16
+// hi / lo pieces in the ring's slice layout; t_sp has 100 rows.
 extern "C" int fused_egcl_launch(const int* idx, const float* edge_mask, const int* ebin,
                                  const float* egeo, const float* a, const float* B,
                                  const float* t_sp, const float* t_p, const float* w_r,
-                                 const float* w_l1, const float* b_l1, const float* w_att,
-                                 const float* b_att, const float* w_c0, const float* b_c0,
+                                 const void* w_l1, const float* b_l1, const float* w_att,
+                                 const float* b_att, const void* w_c0, const float* b_c0,
                                  const float* w_c1, float* agg, float* trans, int P, int N,
-                                 int K, int C, int coord, void* stream) {
-  if (K < 1 || K > KMAX || C < 32 || C > MAX_C || C % 32 != 0)
-    return (int)cudaErrorInvalidValue;
+                                 int K, int channels, int coord, void* stream) {
+  if (K < 1 || K > ROWS || channels != C) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (coord)
     return launch<true>(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l1, w_att,
-                        b_att, w_c0, b_c0, w_c1, agg, trans, P, N, K, C, s);
+                        b_att, w_c0, b_c0, w_c1, agg, trans, P, N, K, s);
   return launch<false>(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l1, w_att,
-                       b_att, w_c0, b_c0, w_c1, agg, trans, P, N, K, C, s);
+                       b_att, w_c0, b_c0, w_c1, agg, trans, P, N, K, s);
 }

@@ -4,15 +4,16 @@ Per node, the `knn` nearest neighbours by CA distance (self included) plus
 `sample_size` distinct non-neighbours drawn without replacement with
 probability proportional to 1/d^3, as Gumbel-top-k (the same distribution).
 Small graphs shrink the counts through the slot mask.  Mirrors
-`dfmdock_tpu/models/edges.select_edges` and, with `kernel=True`,
-`select_edges_dispatch`'s fused route: `torch.topk` does both selections,
-or the select_topk kernel (ops/select_topk) does them in one pass.
+`dfmdock_tpu/models/edges.select_edges` and `select_edges_dispatch`'s fused
+route, which give the same edges: both selections go through
+ops/select_topk (the kernel on CUDA tensors, two stable sorts on CPU
+tensors), which breaks ties to the lower index as `lax.top_k` does.
 """
 from __future__ import annotations
 
 import torch
 
-from dfmdock_tpu_torch.ops.select_topk import NEG_INF, select_topk, slot_mask
+from dfmdock_tpu_torch.ops.select_topk import NEG_INF, select_topk
 
 
 def sample_gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -36,7 +37,6 @@ def select_edges(
     sample_size: int = 40,
     generator: torch.Generator | None = None,
     gumbel: torch.Tensor | None = None,
-    kernel: bool = False,
 ):
     """Neighbour sets from distances.
 
@@ -44,29 +44,14 @@ def select_edges(
       dist: [..., N, N] CA distances; node_mask: [N] bool.
       generator: draws the Gumbel noise when `gumbel` is not given.
       gumbel: optional [..., N, N] injected Gumbel noise.
-      kernel: select through `ops.select_topk` (ties to the lower index);
-        the same Gumbel draw as the `torch.topk` route.
 
     Returns idx [..., N, knn+sample_size] int32 and edge_mask (same shape,
     float32, 0 on padded slots).
     """
-    if sample_size > 0 and gumbel is None:
-        gumbel = sample_gumbel(dist.shape, generator, dist.device)
-    if kernel:
-        y = select_y(dist, node_mask, gumbel) if sample_size > 0 else torch.zeros_like(dist)
-        return select_topk(dist, y, node_mask, knn, sample_size)
-
-    valid_col = node_mask[None, :]
-    masked_neg = torch.where(valid_col, -dist, torch.full_like(dist, NEG_INF))
-    knn_neg, knn_idx = torch.topk(masked_neg, knn, dim=-1)
-    parts = [knn_idx]
     if sample_size > 0:
-        # kNN members leave the sampling pool by distance threshold
-        non_knn = masked_neg < knn_neg[..., -1:]
-        logits = -3.0 * torch.log(torch.clamp(dist, min=1e-10))
-        logits = torch.where(
-            valid_col & non_knn, logits, torch.full_like(logits, NEG_INF)
-        )
-        parts.append(torch.topk(logits + gumbel, sample_size, dim=-1)[1])
-    idx = torch.cat(parts, dim=-1).to(torch.int32)
-    return idx, slot_mask(idx, node_mask, knn, sample_size)
+        if gumbel is None:
+            gumbel = sample_gumbel(dist.shape, generator, dist.device)
+        y = select_y(dist, node_mask, gumbel)
+    else:
+        y = torch.zeros_like(dist)
+    return select_topk(dist, y, node_mask, knn, sample_size)

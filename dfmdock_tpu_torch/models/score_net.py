@@ -9,11 +9,11 @@ ligand rows).  Per forward:
   6 EGCL layers (last one moves ligand CAs) -> tr/rot scores via `_rescale`
   [-> energy head over receptor x ligand pairs in row chunks, ires, clashes]
 
-With `cfg.use_pallas` the forward runs through the CUDA kernels: the edge
-table (ops/edge_table: the whole table, or with `edge_table_kernel` off its
-bins alone), the EGCL stack (ops/fused_egcl), the energy head
-(ops/energy_head) and, with `select_kernel`, edge selection
-(ops/select_topk); otherwise through the eager float32 path.
+Edge selection goes through ops/select_topk on every path.  With
+`cfg.use_pallas` the rest of the forward runs through the CUDA kernels: the
+edge table (ops/edge_table: the whole table, or with `edge_table_kernel`
+off its bins alone), the EGCL stack (ops/fused_egcl) and the energy head
+(ops/energy_head); otherwise through the eager float32 path.
 
 Batch (tensors on the model's device): h0 [N, C] or x [N, F], node_mask [N]
 bool, lig_mask [N] f32, res_id / asym_id [N] int32.
@@ -124,8 +124,7 @@ class ScoreNet(nn.Module):
         dist = pairwise_ca_dist(pos)
         if edges is None:
             edges = select_edges(dist, node_mask, c.knn, c.sample_size,
-                                 generator=generator, gumbel=gumbel,
-                                 kernel=c.use_pallas and c.select_kernel)
+                                 generator=generator, gumbel=gumbel)
         idx, edge_mask = edges
         spatial_w = self.spatial_embed.weight.t()
         positional_w = self.positional_embed.weight.t()

@@ -19,7 +19,9 @@ tables pre-multiplied into the edge MLP's first layer (one-hot @ W @ W_e ==
 T[bin]).  Weights come in the JAX layout [in, out].
 
 `fused_edge_layer` launches the CUDA kernel (csrc/fused_egcl.cu) for CUDA
-tensors and runs `fused_edge_layer_plain` for CPU tensors.
+tensors and runs `fused_edge_layer_plain` for CPU tensors.  The kernel takes
+its products on the tensor cores in three bf16 passes; `prepare_weight`
+splits W_l1 and W_c0 into the bf16 pieces it streams.
 """
 from __future__ import annotations
 
@@ -29,7 +31,13 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from dfmdock_tpu_torch.features.sixd import OMEGA_OFFSET, PHI_OFFSET, THETA_OFFSET, gather_rows
+from dfmdock_tpu_torch.features.sixd import (
+    OMEGA_OFFSET,
+    PHI_OFFSET,
+    SPATIAL_DIM,
+    THETA_OFFSET,
+    gather_rows,
+)
 from dfmdock_tpu_torch.ops import _build
 from dfmdock_tpu_torch.ops.edge_table import (
     E_DB,
@@ -43,8 +51,35 @@ from dfmdock_tpu_torch.ops.edge_table import (
     G_RAD,
 )
 
-MAX_K = 64  # edges per node the kernel holds (its accumulator rows)
-MAX_C = 256  # threads per block = C
+MAX_K = 64  # edges per node the kernel holds (the rows of its wgmma tile)
+KERNEL_C = 256  # the kernel's channel width (wgmma N and product depth)
+SLICE_K = 16  # W rows per stage of the kernel's shared-memory ring
+
+
+def split_bf16(x):
+    """x = hi + lo + O(2^-16 |x|): hi = bf16_rn(x), lo = bf16_rn(x - hi)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def prepare_weight(w):
+    """W [C, C] f32 (JAX layout [in, out]) as the kernel streams it: per
+    slice of SLICE_K input rows, the hi then the lo piece of W^T in wgmma's
+    no-swizzle K-major core-matrix order, element (out n, in k) of slice
+    k // SLICE_K at ((n // 8) * (SLICE_K // 8) + k % SLICE_K // 8) * 64 +
+    (n % 8) * 8 + k % 8.  Returns [C // SLICE_K, 2, SLICE_K * C] bf16."""
+    c = w.shape[0]
+    pieces = []
+    for piece in split_bf16(w.t()):  # [n, k]
+        t = piece.reshape(c // 8, 8, c // SLICE_K, SLICE_K // 8, 8)  # n8, n%8, s, kc, k%8
+        pieces.append(t.permute(2, 0, 3, 1, 4).reshape(c // SLICE_K, SLICE_K * c))
+    return torch.stack(pieces, 1).contiguous()
+
+
+def _aligned(t):
+    """t itself when its data starts on 16 bytes (the kernel's vector
+    loads), else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_edge_layer_plain(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1,
@@ -101,9 +136,9 @@ def fused_edge_layer(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l
         raise ValueError(f"fused_edge_layer: no kernel for device {a.device}")
     p, n, k, _ = ebin.shape
     c = a.shape[-1]
-    if k > MAX_K or c % 32 or c > MAX_C:
-        raise ValueError(f"fused_edge_layer kernel takes K <= {MAX_K} and C a "
-                         f"multiple of 32 up to {MAX_C}, got K={k}, C={c}")
+    if k > MAX_K or c != KERNEL_C:
+        raise ValueError(f"fused_edge_layer kernel takes K <= {MAX_K} and C = {KERNEL_C}, "
+                         f"got K={k}, C={c}")
     dev, f32 = a.device, torch.float32
     req = _build.require
     req(idx, "idx", torch.int32, (p, n, k), dev)
@@ -112,28 +147,31 @@ def fused_edge_layer(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l
     req(egeo, "egeo", f32, (p, n, k, EGEO_WIDTH), dev)
     req(a, "a", f32, (p, n, c), dev)
     req(B, "B", f32, (p, n, c), dev)
-    req(t_sp, "t_sp", f32, (t_sp.shape[0], c), dev)
+    req(t_sp, "t_sp", f32, (SPATIAL_DIM, c), dev)
     req(t_p, "t_p", f32, (t_p.shape[0], c), dev)
     for name, t, shape in (("w_r", w_r, (c,)), ("w_l1", w_l1, (c, c)),
                            ("b_l1", b_l1, (c,)), ("w_att", w_att, (c,)),
                            ("b_att", b_att, (1,))):
         req(t, name, f32, shape, dev)
+    a, B, t_sp, t_p, w_r, b_l1, w_att = map(_aligned, (a, B, t_sp, t_p, w_r, b_l1, w_att))
     agg = torch.empty((p, n, c), dtype=f32, device=dev)
+    w1 = prepare_weight(w_l1)
     coord = coord_params is not None
     if coord:
         w_c0, b_c0, w_c1 = coord_params
         req(w_c0, "w_c0", f32, (c, c), dev)
         req(b_c0, "b_c0", f32, (c,), dev)
         req(w_c1, "w_c1", f32, (c,), dev)
+        wc, b_c0, w_c1 = prepare_weight(w_c0), _aligned(b_c0), _aligned(w_c1)
         trans = torch.empty((p, n, 3), dtype=f32, device=dev)
-        extra = (w_c0.data_ptr(), b_c0.data_ptr(), w_c1.data_ptr(), trans.data_ptr())
+        extra = (wc.data_ptr(), b_c0.data_ptr(), w_c1.data_ptr(), trans.data_ptr())
     else:
         extra = (None, None, None, None)
     with torch.cuda.device(dev):
         rc = _lib()(
             idx.data_ptr(), edge_mask.data_ptr(), ebin.data_ptr(), egeo.data_ptr(),
             a.data_ptr(), B.data_ptr(), t_sp.data_ptr(), t_p.data_ptr(), w_r.data_ptr(),
-            w_l1.data_ptr(), b_l1.data_ptr(), w_att.data_ptr(), b_att.data_ptr(), *extra[:3],
+            w1.data_ptr(), b_l1.data_ptr(), w_att.data_ptr(), b_att.data_ptr(), *extra[:3],
             agg.data_ptr(), extra[3], p, n, k, c, int(coord),
             torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -10,15 +10,27 @@ Tolerances: f32 rel 1e-4 of the largest plain value for sums (the kernels
 add in their own order); exact for indices and bins, which are selections
 and comparisons of the same values.
 """
+import math
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from dfmdock_tpu_torch.config import SamplerConfig
 from dfmdock_tpu_torch.data.batching import pad_complex
+from dfmdock_tpu_torch.data.convert import load_npz_complex
+from dfmdock_tpu_torch.data.dataset import batch_to_tensors, complex_to_batch
+from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
+from dfmdock_tpu_torch.features.sixd import SPATIAL_DIM, pairwise_ca_dist
 from dfmdock_tpu_torch.models.edges import sample_gumbel, select_edges, select_y
 from dfmdock_tpu_torch.ops import edge_table as et
 from dfmdock_tpu_torch.ops.energy_head import fused_energy, fused_energy_plain
+from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, fused_edge_layer_plain
 from dfmdock_tpu_torch.ops.select_topk import select_topk, select_topk_plain
+from dfmdock_tpu_torch.sampler.em import randomize_pose
+
+NPZ = os.path.join(os.path.dirname(__file__), "..", "data", "db5_npz", "1AVX.npz")
 
 pytestmark = pytest.mark.cuda
 
@@ -59,18 +71,19 @@ def test_fused_energy(dev):
 @pytest.mark.parametrize("n_tot,n_valid,ties", [(448, 395, False), (128, 128, True),
                                                 (64, 25, False)])
 def test_select_topk(dev, n_tot, n_valid, ties):
+    """The default select_edges launches the kernel and equals
+    select_topk_plain on the same keys, forced ties included."""
     dist = torch.from_numpy(np.stack([chain_dist(n_tot, s, ties) for s in (1, 2)])).to(dev)
     node_mask = (torch.arange(n_tot) < n_valid).to(dev)
-    gen = torch.Generator(dev).manual_seed(0)
-    idx_k, em_k = select_edges(dist, node_mask, generator=gen, kernel=True)
-    # the select route's y, from the same generator draw
+    before = select_topk.launches
+    idx_k, em_k = select_edges(dist, node_mask, generator=torch.Generator(dev).manual_seed(0))
+    # the keys select_edges built, from the same generator draw
     y = select_y(dist, node_mask,
                  sample_gumbel(dist.shape, torch.Generator(dev).manual_seed(0), dev))
-    before = select_topk.launches
     idx_k2, _ = select_topk(dist, y, node_mask)
     idx_p, em_p = select_topk_plain(dist, y, node_mask)
     torch.cuda.synchronize()
-    assert select_topk.launches == before + 1
+    assert select_topk.launches == before + 2
     assert torch.equal(idx_k, idx_p) and torch.equal(em_k, em_p) and torch.equal(idx_k2, idx_p)
 
 
@@ -98,3 +111,56 @@ def test_edge_bins(dev):
     assert torch.equal(ebin, table)
     valid = edge_mask > 0.5
     assert torch.equal(ebin[valid], plain[valid])
+
+
+def egcl_inputs(dev, poses, n_rec, n_lig, pad_to, seed):
+    """One EGCL layer's inputs at width 256 on random start poses of DB5 1AVX
+    (its first n_rec / n_lig residues, padded to pad_to), the edges from the
+    port's own selection and edge table; a masked edge's geometry is NaN."""
+    raw = load_npz_complex(NPZ)
+    for side, n_keep in (("rec", n_rec), ("lig", n_lig)):
+        for key in ("x", "pos", "seq"):
+            raw[f"{side}_{key}"] = raw[f"{side}_{key}"][:n_keep]
+    batch = batch_to_tensors(complex_to_batch(raw, pad_to=pad_to), dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    pos, _, _ = randomize_pose(gen, batch["pos"], batch["lig_mask"], batch["node_mask"],
+                               SamplerConfig(), poses)
+    pos = pos.contiguous()
+    idx, edge_mask = select_edges(pairwise_ca_dist(pos), batch["node_mask"], generator=gen)
+    ebin, egeo = et.build_edge_table(idx, pos, batch["res_id"], batch["asym_id"],
+                                     normalize=True)
+    egeo = egeo.clone()
+    egeo[edge_mask < 0.5] = float("nan")
+    g = torch.Generator().manual_seed(seed)
+    c, w = 256, 1.0 / math.sqrt(256)
+    r = lambda *shape, scale=1.0: (torch.randn(shape, generator=g) * scale).to(dev)
+    p, n = pos.shape[:2]
+    args = (idx, edge_mask, ebin, egeo, r(p, n, c), r(p, n, c), r(SPATIAL_DIM, c, scale=0.3),
+            r(NUM_RELPOS_CLASSES, c, scale=0.3), r(c, scale=0.01), r(c, c, scale=w),
+            r(c, scale=0.1), r(c, scale=w), r(1, scale=0.1))
+    return args, (r(c, c, scale=w), r(c, scale=0.1), r(c, scale=w))
+
+
+@pytest.mark.parametrize("coord", [False, True])
+@pytest.mark.parametrize("poses,n_rec,n_lig,pad_to", [(16, 223, 172, 448),  # the dock's shapes
+                                                      (2, 24, 16, 64)])     # small, masked
+def test_fused_egcl(dev, coord, poses, n_rec, n_lig, pad_to):
+    """The tensor-core kernel against fused_edge_layer_plain: rel 1e-4 of
+    the largest plain value (f32-grade three-pass bf16 products, another
+    summation order), finite though masked geometry is NaN, and the same
+    bits from two launches (no float atomics)."""
+    args, coord_params = egcl_inputs(dev, poses, n_rec, n_lig, pad_to, seed=3)
+    assert (args[1] < 0.5).any()
+    extra = (coord_params,) if coord else ()
+    counter = "coord_launches" if coord else "launches"
+    before = getattr(fused_edge_layer, counter)
+    out = fused_edge_layer(*args, *extra)
+    again = fused_edge_layer(*args, *extra)
+    ref = fused_edge_layer_plain(*args, *extra)
+    torch.cuda.synchronize()
+    assert getattr(fused_edge_layer, counter) == before + 2
+    outs = out if coord else (out,)
+    for o, o2, rf in zip(outs, again if coord else (again,), ref if coord else (ref,)):
+        assert torch.isfinite(o).all()
+        assert (o - rf).abs().max() <= 1e-4 * rf.abs().max()
+        assert torch.equal(o, o2)

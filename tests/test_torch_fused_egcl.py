@@ -20,7 +20,13 @@ from dfmdock_tpu.models.egnn import build_edge_table_xla, egcl_apply, egcl_init
 from dfmdock_tpu.ops import fused_egcl as jf
 from dfmdock_tpu_torch.models.egnn import EGCL, egnn_apply_fused
 from dfmdock_tpu_torch.ops import edge_table as et
-from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, fused_edge_layer_plain
+from dfmdock_tpu_torch.ops.fused_egcl import (
+    SLICE_K,
+    fused_edge_layer,
+    fused_edge_layer_plain,
+    prepare_weight,
+    split_bf16,
+)
 from dfmdock_tpu_torch.params import to_state_dict
 
 C, E_DIM = 32, 16
@@ -139,3 +145,29 @@ def test_masked_edges_drop_by_selection():
     for o, rf in zip(out, ref):
         assert torch.isfinite(o).all()
         torch.testing.assert_close(o, rf, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c", [64, 256])
+def test_prepare_weight_layout_and_split(c):
+    """The weight as the CUDA kernel streams it: element (out n, in k) of
+    W^T at the offset the kernel's wgmma descriptors read (slice k // SLICE_K,
+    8 x 8 core matrices, hi then lo piece), hi the round-to-nearest bf16 of
+    W and hi + lo within 2^-16 of W.  A three-pass product on the pieces
+    (hi.hi + lo.hi + hi.lo, exact products summed in float64) lies within
+    1e-4 of the f32 product, relative to its largest value."""
+    g = torch.Generator().manual_seed(c)
+    w = torch.randn((c, c), generator=g) / np.sqrt(c)
+    prepared = prepare_weight(w).float()
+    assert prepared.shape == (c // SLICE_K, 2, SLICE_K * c)
+    n = torch.arange(c)[:, None]
+    k = torch.arange(c)[None, :]
+    off = ((n // 8) * (SLICE_K // 8) + (k % SLICE_K) // 8) * 64 + (n % 8) * 8 + k % 8
+    hi, lo = prepared[k // SLICE_K, 0, off], prepared[k // SLICE_K, 1, off]
+    torch.testing.assert_close(hi, w.t().to(torch.bfloat16).float(), rtol=0, atol=0)
+    assert ((hi + lo) - w.t()).abs().max() <= 2.0 ** -16 * w.abs().max()
+    x = torch.nn.functional.silu(torch.randn((64, c), generator=g) * 2.0)
+    (xh, xl), (wh, wl) = split_bf16(x), split_bf16(w)
+    d = lambda t: t.double()
+    three = d(xh) @ d(wh) + d(xl) @ d(wh) + d(xh) @ d(wl)
+    ref = x @ w
+    assert (three - d(ref)).abs().max() <= 1e-4 * ref.abs().max()

@@ -1,8 +1,9 @@
 """The port's fused edge selection (ops/select_topk) vs the JAX package's
 Pallas select_topk_fused (interpret mode), both given the same y = masked
-logits + jax.random.gumbel built by the JAX ops; the port's select route of
-select_edges against its torch.topk route on the same Gumbel noise (the
-CUDA kernel against its plain version is in test_torch_cuda_kernels.py).
+logits + jax.random.gumbel built by the JAX ops; the port's select_edges
+against select_topk_plain and the JAX package's select_edges on the same
+Gumbel noise (the CUDA kernel against its plain version is in
+test_torch_cuda_kernels.py).
 
 Exact: idx and edge_mask (selection only compares values; both sides break
 ties to the lower index)."""
@@ -12,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from dfmdock_tpu.models.edges import select_edges as jax_select_edges
 from dfmdock_tpu.ops.select_topk import _NEG_INF, select_topk_fused
-from dfmdock_tpu_torch.models.edges import select_edges
+from dfmdock_tpu_torch.models.edges import select_edges, select_y
 from dfmdock_tpu_torch.ops.select_topk import select_topk, select_topk_plain
 
 
@@ -64,16 +66,23 @@ def test_plain_matches_jax_kernel(n_tot, n_valid, ties):
 
 @pytest.mark.parametrize("n_valid", [128, 100])
 def test_select_route_matches_topk_route(n_valid):
-    """Same distances, same injected Gumbel noise: both routes of the port's
-    select_edges pick the same edges (no ties in random geometry)."""
+    """The port's select_edges (one route: select_topk on every device)
+    against select_topk_plain on the keys select_y builds and against the
+    JAX package's select_edges, JAX's own Gumbel draw injected."""
     d, mask = make_dist(128, n_valid, seed=11)
-    dist = torch.from_numpy(np.stack([d, d * 1.5]))
+    dists = np.stack([d, d * 1.5])
     node_mask = torch.from_numpy(mask)
-    gumbel = torch.from_numpy(np.array(jax.random.gumbel(jax.random.PRNGKey(1), (2, 128, 128))))
-    idx_t, em_t = select_edges(dist, node_mask, gumbel=gumbel)
-    idx_k, em_k = select_edges(dist, node_mask, gumbel=gumbel, kernel=True)
-    torch.testing.assert_close(em_k, em_t, rtol=0, atol=0)
-    torch.testing.assert_close(idx_k[em_t > 0.5], idx_t[em_t > 0.5], rtol=0, atol=0)
+    keys = [jax.random.PRNGKey(1), jax.random.PRNGKey(2)]
+    gumbel = np.stack([np.array(jax.random.gumbel(k, (128, 128))) for k in keys])
+    idx_t, em_t = select_edges(torch.from_numpy(dists), node_mask,
+                               gumbel=torch.from_numpy(gumbel))
+    y = select_y(torch.from_numpy(dists), node_mask, torch.from_numpy(gumbel))
+    idx_p, em_p = select_topk_plain(torch.from_numpy(dists), y, node_mask)
+    assert torch.equal(idx_t, idx_p) and torch.equal(em_t, em_p)
+    for pose, k in enumerate(keys):
+        idx_j, em_j = jax_select_edges(k, jnp.asarray(dists[pose]), jnp.asarray(mask))
+        np.testing.assert_array_equal(idx_t[pose].numpy(), np.asarray(idx_j))
+        np.testing.assert_array_equal(em_t[pose].numpy(), np.asarray(em_j))
 
 
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing():

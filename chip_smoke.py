@@ -12,7 +12,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bit-equal to the table's bins), edge selection (select_topk, exact,
      with a forced-tie case), the EGCL layers (masked edges' geometry
      poisoned with NaN on the small graph, two launches bit-equal) and the
-     pair energy head (fused_energy, with one all-masked pose);
+     pair energy head (fused_energy, with one all-masked pose).  Then
+     select_topk, exact, at the sweep's buckets N = 512 and 768 (16 poses,
+     sample_size 40 and 0) and on a 4096-node chain (one pose, 64 MB of
+     dist: the widest rows the kernel takes); fused_energy, rel 1e-4, two
+     launches bit-equal, the last pose all masked, on the native 1AVX
+     interface mask (~0.6% kept), a dense 30% mask and C = 1024;
   4. ScoreNet parity: the forward through the kernels (card) against the
      forward through the plain versions (CPU), full width, seeded weights:
      fast() at t in {0.1, 0.5, 0.9} on injected edges, fast() selecting its
@@ -89,7 +94,7 @@ from dfmdock_tpu_torch.ops.edge_table import (
 )
 from dfmdock_tpu_torch.ops.energy_head import fused_energy, fused_energy_plain
 from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, fused_edge_layer_plain
-from dfmdock_tpu_torch.ops.select_topk import select_topk, select_topk_plain
+from dfmdock_tpu_torch.ops.select_topk import NEG_INF, select_topk, select_topk_plain
 from dfmdock_tpu_torch.sampler.em import randomize_pose
 
 NPZ = os.path.join("data", "db5_npz", "1AVX.npz")
@@ -127,8 +132,16 @@ EDGE_TABLE_OPS_PER_EDGE = 308
 EDGE_BINS_OPS_PER_EDGE = 302
 # f32 operations per channel of one kept pair in csrc/energy_head.cu: the
 # add, the mean's add, the centring and the variance's FMA (3), the affine
-# normalisation (3), silu's exp, add and divide (3), the w2 FMA (2).
+# normalisation (3), silu's exp scaling, add and product with the
+# reciprocal (3), the w2 FMA (2).
 ENERGY_OPS_PER_CHANNEL = 13
+# Special-function work per channel of one kept pair: silu's exp and the
+# reciprocal of its division.  The special-function units return 16 results
+# per clock per SM (CUDA C Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) against 128 FP32 lanes of 2 FLOP, so
+# their rate is FP32_FLOP_S / 16.
+ENERGY_SFU_PER_CHANNEL = 2
+SFU_OP_S = FP32_FLOP_S * 16 / (128 * 2)
 SOURCES = {
     "edge_table": ("dfmdock_tpu_torch/csrc/edge_table.cu",
                    "dfmdock_tpu/ops/edge_table.py:218"),
@@ -367,34 +380,10 @@ def kernel_phase(raw, device):
             tied = torch.round(dist / 4.0) * 4.0
             sel_cases.append((" ties", tied, select_y(tied, batch["node_mask"], 0.0 * y)))
         for tag, d, yy in sel_cases:
-            idx_s, em_s = select_topk(d, yy, batch["node_mask"])
-            idx_sp, em_sp = select_topk_plain(d, yy, batch["node_mask"])
-            torch.cuda.synchronize()
-            errs["select_topk"] = max(errs["select_topk"],
-                                      float((idx_s - idx_sp).abs().max()),
-                                      float((em_s - em_sp).abs().max()))
-            if not (torch.equal(idx_s, idx_sp) and torch.equal(em_s, em_sp)):
-                raise AssertionError(
-                    f"select_topk{tag} differs from its plain version: "
-                    f"{int((idx_s != idx_sp).sum())} idx, {int((em_s != em_sp).sum())} mask")
-            log(f"# select_topk{tag} P={num_poses} N={n_pad} seed={seed}: idx and "
-                f"edge_mask equal to plain ({int(em_s.sum())} valid edges)")
-
-        e_args = energy_inputs(batch, pos, 256, seed, device)
-        e_k = fused_energy(*e_args)
-        e_k2 = fused_energy(*e_args)
-        e_p = fused_energy_plain(*e_args)
-        torch.cuda.synchronize()
-        a_err, r_err, _ = max_errs(e_k, e_p)
-        if r_err > F32_REL or not torch.isfinite(e_k).all():
-            raise AssertionError(f"fused_energy: rel err {r_err:.3e} > {F32_REL}")
-        if float(e_k[-1]) != 0.0 or not torch.equal(e_k, e_k2):
-            raise AssertionError("fused_energy: the all-masked pose is not 0, or two "
-                                 "launches differ")
-        errs["fused_energy"] = max(errs["fused_energy"], a_err)
-        log(f"# fused_energy P={num_poses} N={n_pad} seed={seed}: kept pairs "
-            f"{int(e_args[2].sum())}, max abs {a_err:.3e} rel {r_err:.3e}, all-masked "
-            f"pose 0, two launches bit-equal")
+            check_select(errs, f"{tag} P={num_poses} N={n_pad} seed={seed}", d, yy,
+                         batch["node_mask"])
+        check_energy(errs, f"P={num_poses} N={n_pad} seed={seed}",
+                     energy_inputs(batch, pos, 256, seed, device))
 
         egeo_l = egeo_k
         if cx is not None:  # masked edges' geometry poisoned: selection, not * 0
@@ -427,7 +416,88 @@ def kernel_phase(raw, device):
         if main_inputs is None:
             main_inputs = {"table": args, "layer": layer_args, "coord": coord,
                            "select": (dist, y, batch["node_mask"])}
+    select_cases(raw, device, errs)
+    energy_cases(raw, device, errs)
     return errs, main_inputs
+
+
+def check_select(errs, tag, dist, y, node_mask, knn=20, sample_size=40):
+    """select_topk against select_topk_plain on the same keys: exact."""
+    idx_s, em_s = select_topk(dist, y, node_mask, knn, sample_size)
+    idx_sp, em_sp = select_topk_plain(dist, y, node_mask, knn, sample_size)
+    torch.cuda.synchronize()
+    errs["select_topk"] = max(errs["select_topk"], float((idx_s - idx_sp).abs().max()),
+                              float((em_s - em_sp).abs().max()))
+    if not (torch.equal(idx_s, idx_sp) and torch.equal(em_s, em_sp)):
+        raise AssertionError(
+            f"select_topk{tag} sample_size={sample_size} differs from its plain version: "
+            f"{int((idx_s != idx_sp).sum())} idx, {int((em_s != em_sp).sum())} mask")
+    log(f"# select_topk{tag} sample_size={sample_size}: idx and edge_mask equal to "
+        f"plain ({int(em_s.sum())} valid edges)")
+
+
+def select_cases(raw, device, errs):
+    """select_topk at the sweep's buckets (1AVX padded to 512 and 768, P
+    poses, sample_size 40 and 0) and on one 4096-node random-walk chain
+    (4000 valid nodes): exact against the plain version."""
+    for n_pad in (512, 768):
+        batch = batch_to_tensors(complex_to_batch(raw, pad_to=n_pad), device)
+        gen = torch.Generator(device).manual_seed(n_pad)
+        pos, _, _ = randomize_pose(gen, batch["pos"], batch["lig_mask"],
+                                   batch["node_mask"], SamplerConfig(), P)
+        dist = pairwise_ca_dist(pos.contiguous())
+        y = select_y(dist, batch["node_mask"], sample_gumbel(dist.shape, gen, device))
+        for sample_size in (40, 0):
+            check_select(errs, f" P={P} N={n_pad}", dist, y, batch["node_mask"],
+                         sample_size=sample_size)
+    n = 4096
+    g = torch.Generator().manual_seed(4096)
+    ca = torch.cumsum(torch.randn(n, 3, generator=g) * 2 + torch.tensor([3.8, 0.0, 0.0]),
+                      0).to(device)
+    dist = ((ca[:, None] - ca[None]) ** 2).sum(-1).sqrt()[None].contiguous()
+    node_mask = torch.arange(n, device=device) < 4000
+    y = select_y(dist, node_mask, sample_gumbel(
+        dist.shape, torch.Generator(device).manual_seed(1), device))
+    check_select(errs, f" chain P=1 N={n}", dist, y, node_mask)
+
+
+def check_energy(errs, tag, args):
+    """fused_energy against fused_energy_plain: rel F32_REL, finite, two
+    launches bit-equal, the last (all-masked) pose exactly 0."""
+    e_k = fused_energy(*args)
+    e_k2 = fused_energy(*args)
+    e_p = fused_energy_plain(*args)
+    torch.cuda.synchronize()
+    a_err, r_err, _ = max_errs(e_k, e_p)
+    if r_err > F32_REL or not torch.isfinite(e_k).all():
+        raise AssertionError(f"fused_energy {tag}: rel err {r_err:.3e} > {F32_REL}")
+    if float(e_k[-1]) != 0.0 or not torch.equal(e_k, e_k2):
+        raise AssertionError(f"fused_energy {tag}: the all-masked pose is not 0, or two "
+                             "launches differ")
+    errs["fused_energy"] = max(errs["fused_energy"], a_err)
+    mask = args[2]
+    b_ms, b_by = energy_bound(args)
+    log(f"# fused_energy {tag} C={args[0].shape[-1]}: kept pairs {int((mask != 0).sum())} "
+        f"({100 * float((mask != 0).float().mean()):.2f}%), max abs {a_err:.3e} rel "
+        f"{r_err:.3e}, all-masked pose 0, two launches bit-equal; bound {b_ms:.4f} ms by {b_by}")
+
+
+def energy_cases(raw, device, errs):
+    """fused_energy on the native 1AVX interface mask (receptor x ligand
+    within 20 A, ~0.6% of the padded pairs; P poses, C = 256), on a dense
+    30% mask (4 poses) and at C = 1024 (4 poses, the interface mask).  The
+    reranker run's final poses (phase 8) keep ~2%."""
+    batch = batch_to_tensors(complex_to_batch(raw, pad_to=N_PAD), device)
+    native = lambda p: batch["pos"][None].expand(p, -1, -1, -1).contiguous()
+    check_energy(errs, f"interface P={P} N={N_PAD}", energy_inputs(batch, native(P), 256, 11,
+                                                                    device))
+    hr, hl, _, ln_g, ln_b, w2 = energy_inputs(batch, native(4), 256, 12, device)
+    g = torch.Generator().manual_seed(13)
+    dense = (torch.rand(4, N_PAD, N_PAD, generator=g) < 0.3).float().to(device)
+    dense[-1] = 0.0
+    check_energy(errs, f"dense 30% P=4 N={N_PAD}", (hr, hl, dense, ln_g, ln_b, w2))
+    check_energy(errs, f"interface P=4 N={N_PAD}",
+                 energy_inputs(batch, native(4), 1024, 14, device))
 
 
 def parity_phase(raw, device):
@@ -713,6 +783,33 @@ def route_phase(raw, device, steps=STEPS):
     return launches
 
 
+def select_topk_library(dist, y, node_mask, knn=20, sample_size=40):
+    """The same selection through two torch.topk calls (ties in torch's
+    order, not the lower index's): the yardstick of select_topk."""
+    neg = torch.full_like(dist, NEG_INF)
+    masked_neg = torch.where(node_mask, -dist, neg)
+    vals, knn_idx = torch.topk(masked_neg, knn)
+    kept = torch.where(masked_neg < vals[..., knn - 1 : knn], y, neg)
+    return knn_idx, torch.topk(kept, sample_size)[1]
+
+
+def bound_ms(n_bytes, n_ops, flop_s=FP32_FLOP_S, n_sfu=0):
+    """(least ms, what bounds it): bytes over the HBM rate, operations over
+    the rate of their units, special-function results over theirs."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_S, max(n_ops / flop_s, n_sfu / SFU_OP_S)
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def energy_bound(args):
+    """fused_energy: hr, hl and the pair mask in, the LN affine and w2 once,
+    [P] out; FP32 and special-function work over the pairs the mask keeps."""
+    hr, _, pair_mask, *_ = args
+    p, _, c = hr.shape
+    kept = float((pair_mask != 0).sum())
+    return bound_ms(4 * (2 * hr.numel() + pair_mask.numel() + 3 * c + p),
+                    kept * c * ENERGY_OPS_PER_CHANNEL, n_sfu=kept * c * ENERGY_SFU_PER_CHANNEL)
+
+
 def bounds(inputs):
     """Least time the card could take for each kernel's work (ms): the bytes
     the function must move (each input read once, each output written once)
@@ -725,16 +822,12 @@ def bounds(inputs):
     e = p * n * k
     c = layer_args[4].shape[-1]
 
-    def bound(n_bytes, n_ops, flop_s=FP32_FLOP_S):
-        by_bytes, by_ops = n_bytes / HBM_BYTES_S, n_ops / flop_s
-        return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
-
     # edge_table: idx in; bins and geometry out; pos, res_id, asym_id once
     node_bytes = p * n * 36 + 2 * n * 4
-    table = bound(e * 4 * (1 + EBIN_WIDTH + EGEO_WIDTH) + node_bytes,
+    table = bound_ms(e * 4 * (1 + EBIN_WIDTH + EGEO_WIDTH) + node_bytes,
                   e * EDGE_TABLE_OPS_PER_EDGE)
     # edge_bins: idx in; the five bins out
-    bins = bound(e * 4 * (1 + EBIN_WIDTH) + node_bytes, e * EDGE_BINS_OPS_PER_EDGE)
+    bins = bound_ms(e * 4 * (1 + EBIN_WIDTH) + node_bytes, e * EDGE_BINS_OPS_PER_EDGE)
     # fused_egcl: per edge idx, mask, bins, radial (+ coord-diff on the coord
     # layer); a, B in and agg out; tables and weights once.  Operations: the
     # [C] x [C, C] product per edge (twice on the coord layer), three bf16
@@ -751,22 +844,18 @@ def bounds(inputs):
             + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
             + f"; bytes {n_bytes / HBM_BYTES_S * 1e3:.4f} ms; the row's bound: three bf16 "
             "passes (the work the kernel does)")
-    # fused_energy: hr, hl and the pair mask in, the LN affine and w2 once,
-    # [P] out; operations over the pairs the mask keeps
-    hr, _, pair_mask, *_ = inputs["energy"]
-    kept = float(pair_mask.sum())
-    energy = bound(4 * (2 * hr.numel() + pair_mask.numel() + 3 * c + p),
-                   kept * c * ENERGY_OPS_PER_CHANNEL)
+    energy = energy_bound(inputs["energy"])
     # select_topk: dist and y in (node_mask once), idx and edge_mask out;
-    # operations: one compare per lane per extraction
+    # operations: a selection is O(N) compares per row and phase: the kNN's
+    # compare per element, then phase 2's exclusion and selection compares
     dist, _, node_mask = inputs["select"]
-    sp, sn = dist.shape[0], dist.shape[-1]
-    select = bound(4 * 2 * dist.numel() + sn + sp * sn * k * 8, sp * sn * k * sn)
+    rows, sn = dist.numel() // dist.shape[-1], dist.shape[-1]
+    select = bound_ms(4 * 2 * dist.numel() + sn + rows * k * 8, rows * sn * 3)
     passes = BF16_FLOP_S / EGCL_PASSES
-    return {"edge_table": table, "fused_egcl": bound(base, gemm, passes),
-            "fused_egcl_coord": bound(coord_bytes, 2 * gemm, passes),
+    return {"edge_table": table, "fused_egcl": bound_ms(base, gemm, passes),
+            "fused_egcl_coord": bound_ms(coord_bytes, 2 * gemm, passes),
             "fused_energy": energy, "select_topk": select, "edge_bins": bins,
-            "kept_pairs": kept}
+            "kept_pairs": float((inputs["energy"][2] != 0).sum())}
 
 
 def main():
@@ -841,22 +930,29 @@ def main():
                         lambda: select_topk_plain(*inputs["select"])),
         "edge_bins": (lambda: edge_bins(*table_args), lambda: edge_bins_plain(*table_args)),
     }
+    # the library route the port replaced: two torch.topk (their tie order
+    # is left open), timed here as a yardstick and called nowhere in the port
+    library = {"select_topk": lambda: select_topk_library(*inputs["select"])}
     bound = bounds(inputs)
     log(f"# fused_energy is timed and its bound counted on the reranker run's "
         f"final-pose inputs: {bound['kept_pairs']:.0f} kept pairs (P={P})")
     kernels = []
     for name, (kern, plain) in timings.items():
         ms, plain_ms = time_ms(kern), time_ms(plain, reps=3, inner=3)
+        lib_ms = time_ms(library[name]) if name in library else None
         b_ms, b_by = bound[name]
         path, path_counts = path_launches[name]
-        log(f"# {name}: {ms:.4f} ms/launch (device {device_ms(kern):.4f} ms; plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}), {path_counts[name]} "
-            f"launches in the {path} run")
+        dev_ms = device_ms(kern)
+        lib_note = "" if lib_ms is None else (
+            f"; library {lib_ms:.4f} ms, device {device_ms(library[name]):.4f} ms")
+        log(f"# {name}: {ms:.4f} ms/launch (device {dev_ms:.4f} ms, {100 * b_ms / dev_ms:.1f}% "
+            f"of bound; plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}{lib_note}), "
+            f"{path_counts[name]} launches in the {path} run")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": path_counts[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
     log(f"# total {time.perf_counter() - t_start:.1f} s; card {smi}; "
         f"{steps_s:.2f} denoising steps/s (dock CLI), {sampler_steps_s:.2f} (sampler)")

@@ -11,7 +11,9 @@ Linear, applied to the node features before the call; the head's last
 Linear has no bias.  The [N, N, C] pair tensor never materializes.
 
 `fused_energy` launches the CUDA kernel (csrc/energy_head.cu) for CUDA
-tensors and runs `fused_energy_plain` for CPU tensors.
+tensors and runs `fused_energy_plain` for CPU tensors.  The kernel reads
+the pair mask once and evaluates only the pairs it keeps (mask != 0), which
+add to both sums; the others add exactly 0.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from dfmdock_tpu_torch.ops import _build
 
 LN_EPS = 1e-5  # nn.LayerNorm's default, as the head's LayerNorm
 MAX_C = 1024  # the kernel holds C / 32 channels per lane, up to 32
+ROWS_PER_BLOCK = 2  # csrc/energy_head.cu kRows: one partial (num, den) per block
 
 
 def fused_energy_plain(hr, hl, pair_mask, ln_g, ln_b, w2):
@@ -68,7 +71,8 @@ def fused_energy(hr, hl, pair_mask, ln_g, ln_b, w2):
     req(pair_mask, "pair_mask", f32, (p, n, n), dev)
     for name, t in (("ln_g", ln_g), ("ln_b", ln_b), ("w2", w2)):
         req(t, name, f32, (c,), dev)
-    partial = torch.empty((p, n, 2), dtype=f32, device=dev)  # per row: num, den
+    tiles = -(-n // ROWS_PER_BLOCK)
+    partial = torch.empty((p, tiles, 2), dtype=f32, device=dev)  # per block: num, den
     out = torch.empty((p,), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib()(

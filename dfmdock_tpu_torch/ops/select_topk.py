@@ -27,7 +27,7 @@ import torch
 from dfmdock_tpu_torch.ops import _build
 
 NEG_INF = -1e30  # masked-lane value, as models/edges
-MAX_N = 4096  # the block's two [N] f32 rows of shared memory stay within 48 KB
+MAX_N = 4096  # shared memory of a block: 4 rows of keys and node_mask, 72 KB at 4096
 
 
 def slot_mask(idx, node_mask, knn: int, sample_size: int):

@@ -49,11 +49,34 @@ def chain_dist(n_tot, seed, with_ties=False):
     return np.round(d / 4.0) * 4.0 if with_ties else d
 
 
-def test_fused_energy(dev):
+def interface_mask(p, n, rng):
+    """Receptor rows 0..n/2 x ligand columns n/2..7n/8 within 20 A, the two
+    proteins balls of CAs (radius 25 and 20 A) whose centres lie 28 A apart
+    (~2% of the pairs kept), padding after."""
+    half, end = n // 2, 7 * n // 8
+
+    def ball(k, radius):
+        v = rng.randn(k, 3)
+        return v / np.linalg.norm(v, axis=1, keepdims=True) * radius * rng.rand(k, 1) ** (1 / 3)
+
+    ca = np.zeros((n, 3))
+    ca[:half], ca[half:end] = ball(half, 25.0), ball(end - half, 20.0) + [28.0, 0, 0]
+    d = np.linalg.norm(ca[:, None] - ca[None], axis=-1)
+    rec, lig = np.arange(n) < half, (np.arange(n) >= half) & (np.arange(n) < end)
+    return np.repeat((rec[:, None] & lig[None, :] & (d < 20.0))[None], p, axis=0)
+
+
+@pytest.mark.parametrize("mask_kind,c", [("dense30", 256),    # 30% of all pairs
+                                         ("interface", 256),  # as the dock's
+                                         ("interface", 1024)])
+def test_fused_energy(dev, mask_kind, c):
+    """The kernel against fused_energy_plain: rel 1e-4, the all-masked pose
+    exactly 0, two launches bit-equal."""
     rng = np.random.RandomState(5)
-    p, n, c = 4, 448, 256
+    p, n = 4, 448
     hr, hl = (torch.from_numpy(rng.randn(p, n, c).astype(np.float32)).to(dev) for _ in "ab")
-    mask = torch.from_numpy((rng.rand(p, n, n) < 0.3).astype(np.float32)).to(dev)
+    m = rng.rand(p, n, n) < 0.3 if mask_kind == "dense30" else interface_mask(p, n, rng)
+    mask = torch.from_numpy(m.astype(np.float32)).to(dev)
     mask[-1] = 0.0
     g, b, w2 = (torch.from_numpy((s * rng.randn(c) + o).astype(np.float32)).to(dev)
                 for s, o in ((0.3, 1.0), (0.1, 0.0), (0.1, 0.0)))
@@ -68,20 +91,34 @@ def test_fused_energy(dev):
     assert torch.equal(out, again)  # no atomics: the same bits each run
 
 
-@pytest.mark.parametrize("n_tot,n_valid,ties", [(448, 395, False), (128, 128, True),
-                                                (64, 25, False)])
-def test_select_topk(dev, n_tot, n_valid, ties):
+@pytest.mark.parametrize("n_tot,n_valid,ties,sample_size", [
+    pytest.param(448, 395, False, 40, id="448-395-False"),
+    pytest.param(128, 128, True, 40, id="128-128-True"),
+    pytest.param(64, 25, False, 40, id="64-25-False"),
+    # the sweep's buckets, with and without sampling
+    pytest.param(512, 395, False, 40, id="512-395-s40"),
+    pytest.param(512, 395, False, 0, id="512-395-s0"),
+    pytest.param(768, 700, False, 40, id="768-700-s40"),
+    pytest.param(768, 700, False, 0, id="768-700-s0"),
+    # the widest rows the kernel takes (68 KB of shared memory a block)
+    pytest.param(4096, 4000, False, 40, id="4096-4000-s40"),
+])
+def test_select_topk(dev, n_tot, n_valid, ties, sample_size):
     """The default select_edges launches the kernel and equals
     select_topk_plain on the same keys, forced ties included."""
-    dist = torch.from_numpy(np.stack([chain_dist(n_tot, s, ties) for s in (1, 2)])).to(dev)
+    poses = (1,) if n_tot > 1024 else (1, 2)
+    dist = torch.from_numpy(np.stack([chain_dist(n_tot, s, ties) for s in poses])).to(dev)
     node_mask = (torch.arange(n_tot) < n_valid).to(dev)
     before = select_topk.launches
-    idx_k, em_k = select_edges(dist, node_mask, generator=torch.Generator(dev).manual_seed(0))
+    idx_k, em_k = select_edges(dist, node_mask, sample_size=sample_size,
+                               generator=torch.Generator(dev).manual_seed(0))
     # the keys select_edges built, from the same generator draw
     y = select_y(dist, node_mask,
                  sample_gumbel(dist.shape, torch.Generator(dev).manual_seed(0), dev))
-    idx_k2, _ = select_topk(dist, y, node_mask)
-    idx_p, em_p = select_topk_plain(dist, y, node_mask)
+    if sample_size == 0:
+        y = torch.zeros_like(dist)
+    idx_k2, _ = select_topk(dist, y, node_mask, sample_size=sample_size)
+    idx_p, em_p = select_topk_plain(dist, y, node_mask, sample_size=sample_size)
     torch.cuda.synchronize()
     assert select_topk.launches == before + 2
     assert torch.equal(idx_k, idx_p) and torch.equal(em_k, em_p) and torch.equal(idx_k2, idx_p)

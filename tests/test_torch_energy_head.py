@@ -48,6 +48,30 @@ def test_plain_matches_jax_kernel():
     assert out[-1] == 0.0  # the empty masked mean: 0 / (0 + 1e-6)
 
 
+def test_plain_matches_jax_kernel_interface_mask():
+    """An interface-shaped sparse mask, as the dock's: receptor rows x
+    ligand columns within 20 A of two random-walk chains that touch, a few
+    percent of the pairs kept, whole rows empty."""
+    hr, hl, _, g, b, w2 = inputs(n=128, c=64, poses=3, seed=9)
+    rng = np.random.RandomState(10)
+    rec = np.cumsum(rng.randn(60, 3) * 2 + [3.8, 0, 0], axis=0)
+    lig = np.cumsum(rng.randn(40, 3) * 2 + [0, 3.8, 0], axis=0) + rec[30] + [0, 0, 8.0]
+    ca = np.zeros((128, 3))
+    ca[:60], ca[60:100] = rec, lig
+    is_rec, is_lig = np.arange(128) < 60, (np.arange(128) >= 60) & (np.arange(128) < 100)
+    mask = np.zeros((3, 128, 128), np.float32)
+    for p in range(2):
+        d = np.linalg.norm(ca[:, None] - ca[None] + p * np.array([0, 0, 4.0]) * is_lig[None, :, None],
+                           axis=-1)
+        mask[p] = is_rec[:, None] & is_lig[None, :] & (d < 20.0)
+    assert 0.0 < mask[0].mean() < 0.1 and not mask[0][60:].any()
+    out = fused_energy_plain(*map(torch.from_numpy, (hr, hl, mask, g, b, w2))).numpy()
+    for p in range(3):
+        ref = float(jax_fused_energy(hr[p], hl[p], mask[p], g, b, w2))
+        np.testing.assert_allclose(out[p], ref, rtol=1e-5, atol=1e-7)
+    assert out[-1] == 0.0
+
+
 @pytest.mark.parametrize("kernel_path", [False, True])
 def test_score_net_energy_matches_jax(kernel_path):
     """ScoreNet._energy (the head's l0 split into hr / hl, then the kernel's

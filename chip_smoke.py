@@ -197,22 +197,30 @@ def time_ms(fn, reps=5, inner=10):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=10):
+def device_ms(fn, calls=10, per_kernel=False):
     """Device time per call of `fn` (every kernel it launches, without the
-    host's work) from torch.profiler over `calls` calls, after a warm-up."""
+    host's work) from torch.profiler over `calls` calls, after a warm-up;
+    with `per_kernel`, {kernel name: ms per call} instead of the sum."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
         e, "self_cuda_time_total", 0)
-    total = sum(dev_us(e) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / calls if total else float("nan")
+    name = lambda e: e.key.replace("void ", "").replace("(anonymous namespace)::", "").split(
+        "(")[0][:40]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = {name(e): dev_us(e) / 1e3 / calls for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if times:
+            break
+    if per_kernel:
+        return times
+    return sum(times.values()) if times else float("nan")
 
 
 def reset_counts():
@@ -801,12 +809,16 @@ def bound_ms(n_bytes, n_ops, flop_s=FP32_FLOP_S, n_sfu=0):
 
 
 def energy_bound(args):
-    """fused_energy: hr, hl and the pair mask in, the LN affine and w2 once,
-    [P] out; FP32 and special-function work over the pairs the mask keeps."""
+    """fused_energy: the pair mask in, and of hr and hl only the rows that
+    keep a pair (what the function needs; the kernel reads no others); the
+    LN affine and w2 once, [P] out; FP32 and special-function work over the
+    pairs the mask keeps."""
     hr, _, pair_mask, *_ = args
     p, _, c = hr.shape
-    kept = float((pair_mask != 0).sum())
-    return bound_ms(4 * (2 * hr.numel() + pair_mask.numel() + 3 * c + p),
+    kept_mask = pair_mask != 0
+    kept = float(kept_mask.sum())
+    rows = float(kept_mask.any(-1).sum()) + float(kept_mask.any(-2).sum())
+    return bound_ms(4 * (pair_mask.numel() + rows * c + 3 * c + p),
                     kept * c * ENERGY_OPS_PER_CHANNEL, n_sfu=kept * c * ENERGY_SFU_PER_CHANNEL)
 
 
@@ -855,7 +867,7 @@ def bounds(inputs):
     return {"edge_table": table, "fused_egcl": bound_ms(base, gemm, passes),
             "fused_egcl_coord": bound_ms(coord_bytes, 2 * gemm, passes),
             "fused_energy": energy, "select_topk": select, "edge_bins": bins,
-            "kept_pairs": float((inputs["energy"][2] != 0).sum())}
+            "kept": inputs["energy"][2] != 0}
 
 
 def main():
@@ -934,8 +946,10 @@ def main():
     # is left open), timed here as a yardstick and called nowhere in the port
     library = {"select_topk": lambda: select_topk_library(*inputs["select"])}
     bound = bounds(inputs)
+    kept = bound["kept"]
     log(f"# fused_energy is timed and its bound counted on the reranker run's "
-        f"final-pose inputs: {bound['kept_pairs']:.0f} kept pairs (P={P})")
+        f"final-pose inputs: {int(kept.sum())} kept pairs, {int(kept.any(-1).sum())} "
+        f"(pose, row) and {int(kept.any(-2).sum())} (pose, column) with a kept pair (P={P})")
     kernels = []
     for name, (kern, plain) in timings.items():
         ms, plain_ms = time_ms(kern), time_ms(plain, reps=3, inner=3)

@@ -7,12 +7,15 @@
 // partial sums and a second pass adds them per pose in a fixed order: no
 // float atomics, the same bits each run.
 //
-// Bound: bytes at the dock's masks (hr, hl and the pair mask read once),
-// the special-function units at dense ones (one exp and one reciprocal per
-// channel per kept pair).  On the dock path the mask keeps ~2% of the pairs
-// (receptor x ligand within 20 A), crowded into the interface rows of a few
-// poses: a design that waits on one mask load per pair, or leaves a row's
-// pairs to one warp, loses to latency.
+// Bound: the pair mask read once and, of hr and hl, only the rows that
+// keep a pair (no other row is read), against the special-function work:
+// one exp and one reciprocal per channel per kept pair.  On the dock path
+// the mask keeps ~2% of the pairs (receptor x ligand within 20 A), crowded
+// into the interface rows of a few poses, so the bytes are little more
+// than the mask and the special-function units bind, on the reranker
+// dock's inputs and more so at dense masks.  A design that waits on one
+// mask load per pair, or leaves a row's pairs to one warp, loses to
+// latency.
 //
 // Design: one block of eight warps per (pose, two rows).  The block reads
 // its rows of the mask once, coalesced, 16 B a lane, in windows of 1024

@@ -89,7 +89,10 @@ __device__ __forceinline__ void store_slots(int* idx_row, float* em_row, int bas
 }
 
 // kWide: N > 1024, so a lane holds more than 32 elements and the winner's
-// lane has more elements than the warp has lanes.
+// lane has more elements than the warp has lanes.  The looped search at
+// every N gives the same picks but took 0.0472 ms device against 0.0359 at
+// P = 16, N = 448 on an H100 SXM (700 W; chip_smoke.py), so N <= 1024
+// keeps its own instance.
 template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 select_topk_kernel(const float* __restrict__ dist, const float* __restrict__ y,

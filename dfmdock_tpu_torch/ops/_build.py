@@ -78,6 +78,12 @@ def check(rc: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
+def aligned(t):
+    """t itself when its data starts on 16 bytes (the kernels' vector
+    loads), else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def require(t, name: str, dtype, shape, device):
     """Validate one kernel argument before its pointer is passed on."""
     import torch

@@ -71,6 +71,8 @@ def fused_energy(hr, hl, pair_mask, ln_g, ln_b, w2):
     req(pair_mask, "pair_mask", f32, (p, n, n), dev)
     for name, t in (("ln_g", ln_g), ("ln_b", ln_b), ("w2", w2)):
         req(t, name, f32, (c,), dev)
+    # the kernel's float4 loads: a view that starts off 16 bytes is copied
+    hr, hl, pair_mask, ln_g, ln_b, w2 = map(_build.aligned, (hr, hl, pair_mask, ln_g, ln_b, w2))
     tiles = -(-n // ROWS_PER_BLOCK)
     partial = torch.empty((p, tiles, 2), dtype=f32, device=dev)  # per block: num, den
     out = torch.empty((p,), dtype=f32, device=dev)

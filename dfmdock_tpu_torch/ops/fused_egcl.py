@@ -76,12 +76,6 @@ def prepare_weight(w):
     return torch.stack(pieces, 1).contiguous()
 
 
-def _aligned(t):
-    """t itself when its data starts on 16 bytes (the kernel's vector
-    loads), else a copy."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def fused_edge_layer_plain(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1,
                            b_l1, w_att, b_att, coord_params=None):
     """Plain PyTorch version of the kernel.
@@ -153,7 +147,7 @@ def fused_edge_layer(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l
                            ("b_l1", b_l1, (c,)), ("w_att", w_att, (c,)),
                            ("b_att", b_att, (1,))):
         req(t, name, f32, shape, dev)
-    a, B, t_sp, t_p, w_r, b_l1, w_att = map(_aligned, (a, B, t_sp, t_p, w_r, b_l1, w_att))
+    a, B, t_sp, t_p, w_r, b_l1, w_att = map(_build.aligned, (a, B, t_sp, t_p, w_r, b_l1, w_att))
     agg = torch.empty((p, n, c), dtype=f32, device=dev)
     w1 = prepare_weight(w_l1)
     coord = coord_params is not None
@@ -162,7 +156,7 @@ def fused_edge_layer(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l
         req(w_c0, "w_c0", f32, (c, c), dev)
         req(b_c0, "b_c0", f32, (c,), dev)
         req(w_c1, "w_c1", f32, (c,), dev)
-        wc, b_c0, w_c1 = prepare_weight(w_c0), _aligned(b_c0), _aligned(w_c1)
+        wc, b_c0, w_c1 = prepare_weight(w_c0), _build.aligned(b_c0), _build.aligned(w_c1)
         trans = torch.empty((p, n, 3), dtype=f32, device=dev)
         extra = (wc.data_ptr(), b_c0.data_ptr(), w_c1.data_ptr(), trans.data_ptr())
     else:

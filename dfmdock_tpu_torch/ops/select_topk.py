@@ -82,6 +82,8 @@ def select_topk(dist, y, node_mask, knn: int = 20, sample_size: int = 40):
     _build.require(dist, "dist", torch.float32, (*lead, n, n), dev)
     _build.require(y, "y", torch.float32, (*lead, n, n), dev)
     _build.require(node_mask, "node_mask", torch.bool, (n,), dev)
+    # the kernel's float4 loads: a view that starts off 16 bytes is copied
+    dist, y = _build.aligned(dist), _build.aligned(y)
     k = knn + sample_size
     idx = torch.empty((*lead, n, k), dtype=torch.int32, device=dev)
     edge_mask = torch.empty((*lead, n, k), dtype=torch.float32, device=dev)

@@ -58,25 +58,6 @@ def ptxas_lines(name):
     return out
 
 
-def kernel_times(fn, calls=20):
-    """{kernel name: device ms per call} over `calls` calls, after a warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
-        e, "self_cuda_time_total", 0)
-    name = lambda e: e.key.replace("void ", "").replace("(anonymous namespace)::", "").split(
-        "(")[0][:40]
-    return {name(e):
-            dev_us(e) / 1e3 / calls
-            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
-
-
 def main():
     if not torch.cuda.is_available():
         print("torch_energy_breakdown: CUDA is not available", file=sys.stderr)
@@ -108,7 +89,7 @@ def main():
     for name, m in masks.items():
         a = (hr, hl, m, g, b, w2)
         _, rel, _ = cs.max_errs(fused_energy(*a), fused_energy_plain(*a))
-        times = kernel_times(lambda: fused_energy(*a))
+        times = cs.device_ms(lambda: fused_energy(*a), calls=20, per_kernel=True)
         print(f"fused_energy {name}: {int((m != 0).sum())} kept, rel err {rel:.2e}, device "
               f"{sum(times.values()):.4f} ms = "
               + " + ".join(f"{k} {v:.4f}" for k, v in times.items()))
@@ -120,7 +101,7 @@ def main():
     sel = (dist, y, batch["node_mask"])
     for name, fn in (("select_topk", lambda: select_topk(*sel)),
                      ("two torch.topk", lambda: cs.select_topk_library(*sel))):
-        times = kernel_times(fn)
+        times = cs.device_ms(fn, calls=20, per_kernel=True)
         print(f"{name}: device {sum(times.values()):.4f} ms = "
               + " + ".join(f"{k} {v:.4f}" for k, v in times.items()))
     return 0

@@ -95,6 +95,8 @@ def test_fused_energy(dev, mask_kind, c):
     pytest.param(448, 395, False, 40, id="448-395-False"),
     pytest.param(128, 128, True, 40, id="128-128-True"),
     pytest.param(64, 25, False, 40, id="64-25-False"),
+    pytest.param(128, 100, False, 40, id="128-100-False"),  # padded
+    pytest.param(96, 96, True, 0, id="96-96-True-s0"),  # kNN alone, forced ties
     # the sweep's buckets, with and without sampling
     pytest.param(512, 395, False, 40, id="512-395-s40"),
     pytest.param(512, 395, False, 0, id="512-395-s0"),
@@ -122,6 +124,37 @@ def test_select_topk(dev, n_tot, n_valid, ties, sample_size):
     torch.cuda.synchronize()
     assert select_topk.launches == before + 2
     assert torch.equal(idx_k, idx_p) and torch.equal(em_k, em_p) and torch.equal(idx_k2, idx_p)
+
+
+def misaligned(t):
+    """A contiguous copy of t whose data starts 4 bytes past 16."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+def test_misaligned_views(dev):
+    """Contiguous views that start off 16 bytes (the kernels' float4 loads)
+    give the same bits as aligned ones, in both redesigned kernels."""
+    rng = np.random.RandomState(9)
+    p, n, c = 2, 128, 256
+    hr, hl = (torch.from_numpy(rng.randn(p, n, c).astype(np.float32)).to(dev) for _ in "ab")
+    mask = torch.from_numpy((rng.rand(p, n, n) < 0.1).astype(np.float32)).to(dev)
+    g, b, w2 = (torch.from_numpy(rng.randn(c).astype(np.float32)).to(dev) for _ in "abc")
+    args = (hr, hl, mask, g, b, w2)
+    out = fused_energy(*args)
+    shifted = fused_energy(*map(misaligned, args))
+    dist = torch.from_numpy(np.stack([chain_dist(n, s) for s in (1, 2)])).to(dev)
+    node_mask = (torch.arange(n) < 120).to(dev)
+    y = select_y(dist, node_mask,
+                 sample_gumbel(dist.shape, torch.Generator(dev).manual_seed(0), dev))
+    idx, em = select_topk(dist, y, node_mask)
+    idx_s, em_s = select_topk(misaligned(dist), misaligned(y), node_mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, shifted)
+    assert torch.equal(idx, idx_s) and torch.equal(em, em_s)
 
 
 def test_edge_bins(dev):

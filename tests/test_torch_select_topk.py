@@ -2,9 +2,8 @@
 Pallas select_topk_fused (interpret mode), both given the same y = masked
 logits + jax.random.gumbel built by the JAX ops; the port's select_edges
 against select_topk_plain and the JAX package's select_edges on the same
-Gumbel noise; the CUDA kernel's lane-by-lane selection scheme, emulated,
-against the plain version (the kernel itself against its plain version is
-in test_torch_cuda_kernels.py).
+Gumbel noise (the CUDA kernel against its plain version is in
+test_torch_cuda_kernels.py).
 
 Exact: idx and edge_mask (selection only compares values; both sides break
 ties to the lower index)."""
@@ -44,6 +43,10 @@ def jax_y(key, dist, mask):
     pytest.param(128, 100, False, 40, id="128-100-False"),  # padded
     pytest.param(64, 25, False, 40, id="64-25-False"),  # tiny: fewer than knn + sample valid
     pytest.param(128, 128, True, 40, id="128-128-True"),  # forced distance ties
+    pytest.param(128, 100, True, 40, id="128-100-True-s40"),  # ties and padding
+    pytest.param(128, 100, True, 0, id="128-100-True-s0"),
+    pytest.param(64, 64, True, 0, id="64-64-True-s0"),  # kNN alone, ties
+    pytest.param(64, 25, False, 0, id="64-25-s0"),  # kNN alone, fewer than knn valid
     # wider rows, as the sweep pads (the CUDA kernel's warp holds N / 32 a lane)
     pytest.param(256, 230, False, 40, id="256-230-s40"),
     pytest.param(256, 230, False, 0, id="256-230-s0"),
@@ -91,53 +94,6 @@ def test_select_route_matches_topk_route(n_valid):
         idx_j, em_j = jax_select_edges(k, jnp.asarray(dists[pose]), jnp.asarray(mask))
         np.testing.assert_array_equal(idx_t[pose].numpy(), np.asarray(idx_j))
         np.testing.assert_array_equal(em_t[pose].numpy(), np.asarray(em_j))
-
-
-def warp_select(masked_neg, y, knn, sample_size):
-    """csrc/select_topk.cu's order of work for one row, written out lane by
-    lane: lane l owns the elements l, l + 32, ... and keeps the best of
-    those still in play; an extraction takes the warp's best (value, -index)
-    and only the winner's lane rescans, for its best element ranked below
-    the winner; phase 2 rewrites the untouched row to where(masked_neg <
-    kth, y, -1e30) and starts again.  Returns the K indices."""
-    n = len(masked_neg)
-
-    def lane_best(row, lane, below=None):
-        keys = [(row[l], -l) for l in range(lane, n, 32)]
-        keys = [k for k in keys if below is None or k < below]
-        return max(keys) if keys else None
-
-    row, out, kth = masked_neg, [], None
-    bests = [lane_best(row, lane) for lane in range(32)]
-    for t in range(knn + sample_size):
-        if t == knn:
-            row = np.where(masked_neg < kth, y, np.float32(_NEG_INF)).astype(np.float32)
-            bests = [lane_best(row, lane) for lane in range(32)]
-        win = max(b for b in bests if b is not None)
-        i = -win[1]
-        bests[i % 32] = lane_best(row, i % 32, below=win)
-        if t == knn - 1:
-            kth = win[0]
-        out.append(i)
-    return out
-
-
-@pytest.mark.parametrize("n_tot,n_valid,ties,sample_size", [
-    (128, 100, False, 40),  # padded
-    (128, 128, True, 40),   # forced distance ties
-    (64, 25, False, 40),    # fewer than knn + sample valid nodes
-    (96, 96, True, 0),      # kNN alone
-])
-def test_warp_selection_matches_plain(n_tot, n_valid, ties, sample_size):
-    """The CUDA kernel's selection scheme (emulated lane by lane) picks
-    select_topk_plain's indices in every slot, padded slots included."""
-    d, mask = make_dist(n_tot, n_valid, seed=21, with_ties=ties)
-    y = jax_y(jax.random.PRNGKey(4), d, mask)
-    idx_p, _ = select_topk_plain(torch.from_numpy(d), torch.from_numpy(y),
-                                 torch.from_numpy(mask), sample_size=sample_size)
-    masked_neg = np.where(mask[None, :], -d, np.float32(_NEG_INF)).astype(np.float32)
-    got = np.array([warp_select(masked_neg[i], y[i], 20, sample_size) for i in range(n_tot)])
-    np.testing.assert_array_equal(got, idx_p.numpy())
 
 
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing():

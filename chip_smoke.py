@@ -5,11 +5,12 @@
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: the card's name and power limit;
   2. build: nvcc builds every kernel of dfmdock_tpu_torch/csrc/, in parallel;
-  3. kernel checks: each kernel against its plain PyTorch version on the
-     card, at the dock path's shapes (P=16 poses of DB5 1AVX padded to
-     N=448, K=60, C=256; three seeds) and on a small masked graph (N=64,
-     40 valid nodes): the edge table, its bins-only mode (edge_bins, also
-     bit-equal to the table's bins), edge selection (select_topk, exact,
+  3. kernel checks: the edge table's bin code at every boundary (exact);
+     each kernel against its plain PyTorch version on the card, at the dock
+     path's shapes (P=16 poses of DB5 1AVX padded to N=448, K=60, C=256;
+     three seeds) and on a small masked graph (N=64, 40 valid nodes): the
+     edge table (bin ties logged per case), its bins-only mode (edge_bins,
+     also bit-equal to the table's bins), edge selection (select_topk, exact,
      with a forced-tie case), the EGCL layers (masked edges' geometry
      poisoned with NaN on the small graph, two launches bit-equal) and the
      pair energy head (fused_energy, with one all-masked pose).  Then
@@ -41,6 +42,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      False).  Edge selection has one route (select_topk, ties to the lower
      index), so the select route's trajectory must equal fast()'s bit for
      bit (a gate); where the bins route's leaves it is reported.
+The kernel table after phase 10 gives each kernel's time by CUDA events,
+its device time (torch.profiler), its enqueue time on the host (host_ms:
+1,000 calls with no synchronize), its plain version's time and its bound.
 Each main path (phases 5, 8, 9 and the routes of 10) runs with the launch
 counts set to 0 just before it and read just after; a kernel of the path
 that did not launch fails the run.  The last line is {"ok": true,
@@ -80,6 +84,7 @@ from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
 from dfmdock_tpu_torch.models.edges import sample_gumbel, select_edges, select_y
 from dfmdock_tpu_torch.ops import _build
 from dfmdock_tpu_torch.ops.edge_table import (
+    BIN_FAMILIES,
     E_DB,
     E_OB,
     E_PB,
@@ -87,6 +92,7 @@ from dfmdock_tpu_torch.ops.edge_table import (
     E_TB,
     EBIN_WIDTH,
     EGEO_WIDTH,
+    bin_values,
     build_edge_table,
     build_edge_table_plain,
     edge_bins,
@@ -124,12 +130,23 @@ FP32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
 # fused_egcl takes each product in three bf16 passes (hi.hi + lo.hi + hi.lo)
 EGCL_PASSES = 3
-# f32 operations per edge in csrc/edge_table.cu, counted from the source:
-# two virtual CBs (2 x 24), two dihedrals (2 x 62), the planar angle (22),
-# distance and coord-diff (18), 96 boundary compares.  The bins-only mode
-# skips the coord-diff's normalisation (a sqrt, two adds, three divides).
-EDGE_TABLE_OPS_PER_EDGE = 308
-EDGE_BINS_OPS_PER_EDGE = 302
+# The edge table's own work, counted from csrc/edge_table.cu: FP32
+# operations (a multiply-add as two; a bin's guess, clamp and fix-up
+# compares as eight) and special-function results (square roots, the
+# reciprocal of each IEEE division, atan2f's and acosf's), where a division
+# is one reciprocal and one multiply, atan2f one division and 20 operations
+# and acosf one square root and 16.
+# - Every edge: the CA distance (9 + 1 sqrt), its bin (8), the cutoff test
+#   and the relpos class (7); edge_table also the coord-diff's
+#   normalisation (a sqrt, two adds, three divisions: 5 + 4).
+# - An edge kept for the angles (dist < 22 A, j != i): omega (90 + 13),
+#   theta (50 + 5), phi (27 + 2), three bins (24).
+# - Once per node: the virtual C-beta (33) and a row's own terms of theta
+#   and phi (40 + 8).
+EDGE_TABLE_OPS_PER_EDGE, EDGE_TABLE_SFU_PER_EDGE = 29, 5
+EDGE_BINS_OPS_PER_EDGE, EDGE_BINS_SFU_PER_EDGE = 24, 1
+EDGE_OPS_PER_KEPT_EDGE, EDGE_SFU_PER_KEPT_EDGE = 191, 20
+EDGE_OPS_PER_NODE, EDGE_SFU_PER_NODE = 73, 8
 # f32 operations per channel of one kept pair in csrc/energy_head.cu: the
 # add, the mean's add, the centring and the variance's FMA (3), the affine
 # normalisation (3), silu's exp scaling, add and product with the
@@ -177,6 +194,23 @@ def max_errs(out, ref):
     err = (out.double() - ref.double()).abs().max().item()
     scale = ref.double().abs().max().item()
     return err, err / (scale + 1e-30), scale
+
+
+def host_ms(fn, calls=50, runs=20):
+    """Enqueue time per call of `fn` (ms): the host clock over `calls`
+    back-to-back calls with no synchronize, the median of `runs` such runs
+    (1,000 calls), each started on an idle device so that no call waits on
+    a full launch queue."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def time_ms(fn, reps=5, inner=10):
@@ -337,9 +371,28 @@ def energy_inputs(batch, pos, c, seed, device):
             r(c, scale=0.1), r(c, scale=0.1))
 
 
+def check_bin_values(device):
+    """The edge kernel's bin code (csrc/edge_table.cu's test entry) against
+    the plain count(x > b), exact: every boundary of each family, its
+    float32 neighbour on each side, NaN, +-inf and +-0."""
+    for family, bounds in enumerate(BIN_FAMILIES):
+        b = np.array(bounds, np.float32)
+        x = torch.from_numpy(np.concatenate([
+            b, np.nextafter(b, np.float32(np.inf)), np.nextafter(b, np.float32(-np.inf)),
+            np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)]))
+        got = bin_values(x.to(device), family).cpu()
+        if not torch.equal(got, bin_values(x, family)):
+            raise AssertionError(f"edge_table bin code, family {family}: "
+                                 f"{int((got != bin_values(x, family)).sum())} of {len(x)} "
+                                 "values in another bin than the plain count")
+    log("# edge_table bin code: every boundary, its neighbours, NaN, +-inf and +-0 in the "
+        "plain count's bin (three families)")
+
+
 def kernel_phase(raw, device):
     """Every kernel against its plain version on the card."""
     errs = {name: 0.0 for name in SOURCES}
+    check_bin_values(device)
     cases = [(P, N_PAD, s, None) for s in (0, 1, 2)]
     # small masked graph: 40 valid nodes of 1AVX padded to 64
     small = dict(raw)
@@ -834,12 +887,27 @@ def bounds(inputs):
     e = p * n * k
     c = layer_args[4].shape[-1]
 
-    # edge_table: idx in; bins and geometry out; pos, res_id, asym_id once
+    # edge_table: idx in; bins and geometry out; pos, res_id, asym_id once.
+    # Operations: every edge's, the kept edges' angles, every node's terms.
+    # edge_bins: the same without the geometry.
+    pos = table_args[1]
+    rows = torch.arange(n, device=idx.device, dtype=idx.dtype)[:, None]
+    kept = int(((sixd_values_at(pos, idx)[0] < 22.0) & (idx != rows)).sum())
     node_bytes = p * n * 36 + 2 * n * 4
-    table = bound_ms(e * 4 * (1 + EBIN_WIDTH + EGEO_WIDTH) + node_bytes,
-                  e * EDGE_TABLE_OPS_PER_EDGE)
-    # edge_bins: idx in; the five bins out
-    bins = bound_ms(e * 4 * (1 + EBIN_WIDTH) + node_bytes, e * EDGE_BINS_OPS_PER_EDGE)
+    edge_bounds = {}
+    for name, width, ops, sfu in (
+            ("edge_table", EBIN_WIDTH + EGEO_WIDTH, EDGE_TABLE_OPS_PER_EDGE,
+             EDGE_TABLE_SFU_PER_EDGE),
+            ("edge_bins", EBIN_WIDTH, EDGE_BINS_OPS_PER_EDGE, EDGE_BINS_SFU_PER_EDGE)):
+        n_bytes = e * 4 * (1 + width) + node_bytes
+        n_ops = e * ops + kept * EDGE_OPS_PER_KEPT_EDGE + p * n * EDGE_OPS_PER_NODE
+        n_sfu = e * sfu + kept * EDGE_SFU_PER_KEPT_EDGE + p * n * EDGE_SFU_PER_NODE
+        edge_bounds[name] = bound_ms(n_bytes, n_ops, n_sfu=n_sfu)
+        log(f"# bound {name}: {kept}/{e} edges kept for the angles; bytes "
+            f"{n_bytes / HBM_BYTES_S * 1e3:.4f} ms ({n_bytes / 1e6:.1f} MB), FP32 "
+            f"{n_ops / FP32_FLOP_S * 1e3:.4f} ms ({n_ops / 1e6:.1f} M operations), "
+            f"special-function units {n_sfu / SFU_OP_S * 1e3:.4f} ms ({n_sfu / 1e6:.2f} M "
+            f"results): bound by {edge_bounds[name][1]}")
     # fused_egcl: per edge idx, mask, bins, radial (+ coord-diff on the coord
     # layer); a, B in and agg out; tables and weights once.  Operations: the
     # [C] x [C, C] product per edge (twice on the coord layer), three bf16
@@ -864,9 +932,9 @@ def bounds(inputs):
     rows, sn = dist.numel() // dist.shape[-1], dist.shape[-1]
     select = bound_ms(4 * 2 * dist.numel() + sn + rows * k * 8, rows * sn * 3)
     passes = BF16_FLOP_S / EGCL_PASSES
-    return {"edge_table": table, "fused_egcl": bound_ms(base, gemm, passes),
+    return {**edge_bounds, "fused_egcl": bound_ms(base, gemm, passes),
             "fused_egcl_coord": bound_ms(coord_bytes, 2 * gemm, passes),
-            "fused_energy": energy, "select_topk": select, "edge_bins": bins,
+            "fused_energy": energy, "select_topk": select,
             "kept": inputs["energy"][2] != 0}
 
 
@@ -956,17 +1024,17 @@ def main():
         lib_ms = time_ms(library[name]) if name in library else None
         b_ms, b_by = bound[name]
         path, path_counts = path_launches[name]
-        dev_ms = device_ms(kern)
+        dev_ms, enqueue_ms = device_ms(kern), host_ms(kern)
         lib_note = "" if lib_ms is None else (
             f"; library {lib_ms:.4f} ms, device {device_ms(library[name]):.4f} ms")
         log(f"# {name}: {ms:.4f} ms/launch (device {dev_ms:.4f} ms, {100 * b_ms / dev_ms:.1f}% "
-            f"of bound; plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}{lib_note}), "
-            f"{path_counts[name]} launches in the {path} run")
+            f"of bound; host {enqueue_ms:.4f} ms to enqueue; plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}{lib_note}), {path_counts[name]} launches in the {path} run")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": path_counts[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "host_ms": enqueue_ms,
         })
     log(f"# total {time.perf_counter() - t_start:.1f} s; card {smi}; "
         f"{steps_s:.2f} denoising steps/s (dock CLI), {sampler_steps_s:.2f} (sampler)")

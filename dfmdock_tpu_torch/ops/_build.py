@@ -16,6 +16,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -84,10 +86,13 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def require(t, name: str, dtype, shape, device):
-    """Validate one kernel argument before its pointer is passed on."""
-    import torch
-
+def require(t, name: str, dtype, shape: tuple, device):
+    """Validate one kernel argument before its pointer is passed on: a
+    tensor on `device`, of `dtype` and `shape` (a tuple), contiguous.  One
+    test of all five on the way through; the message only on failure."""
+    if (isinstance(t, torch.Tensor) and t.dtype == dtype and t.shape == shape
+            and t.is_contiguous() and t.device == device):
+        return
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor")
     if t.device != device:
@@ -96,5 +101,15 @@ def require(t, name: str, dtype, shape, device):
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+    raise ValueError(f"{name}: not contiguous")
+
+
+def launch(fn, device, *args) -> int:
+    """Call the launcher `fn` with `args` and the raw handle of `device`'s
+    current stream, with `device` the current CUDA device (made current for
+    the call alone when another is): the launcher's cudaError_t."""
+    index = device.index
+    if torch.cuda.current_device() == index:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -18,6 +18,13 @@ tensors and runs `build_edge_table_plain` for CPU tensors.  `edge_bins` is
 its bins-only mode, the port of the parked TPU kernel
 `dfmdock_tpu/ops/edge_bins.py:edge_bins`: ebin alone, from the same kernel
 source without the geometry stores (`edge_bins_plain` on CPU tensors).
+`bin_values` reaches the kernel's bin code alone, for tests.
+
+On a CUDA tensor each wrapper checks its arguments, allocates its outputs
+and calls the launcher with the raw handle of the current stream; the
+device is switched only when the tensors lie on a device other than the
+current one.  The outputs are two allocations: one split into two views took
+longer on the host (scripts/torch_edge_table_breakdown.py).
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from dfmdock_tpu_torch.features.sixd import (
     ANGLE_BOUNDARIES,
     DIST_BOUNDARIES,
     PHI_BOUNDARIES,
+    bin_index,
     gather_rows,
     sixd_bins_at,
 )
@@ -70,53 +78,47 @@ def build_edge_table_plain(idx, pos, res_id, asym_id, *, normalize: bool):
             edge_geometry(idx, pos, normalize=normalize))
 
 
-_BOUNDS: dict = {}
-
-
-def _bounds(device) -> torch.Tensor:
-    """dist | angle | phi boundaries as one f32 tensor on `device`."""
-    if device not in _BOUNDS:
-        _BOUNDS[device] = torch.tensor(
-            DIST_BOUNDARIES + ANGLE_BOUNDARIES + PHI_BOUNDARIES,
-            dtype=torch.float32, device=device,
-        )
-    return _BOUNDS[device]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each launcher's arguments: pointers, ints, the outputs and the stream
+_ARGTYPES = {
+    "edge_table_launch": [_P] * 4 + [_I] * 4 + [_P] * 3,
+    "edge_bins_launch": [_P] * 4 + [_I] * 3 + [_P] * 2,
+    "edge_bin_values_launch": [_P] + [_I] * 2 + [_P] * 2,
+}
 
 
 @functools.cache
-def _lib(entry: str, geometry: bool):
+def _lib(entry: str):
     fn = getattr(_build.load("edge_table"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * (4 if geometry else 3)
-                   + [ctypes.c_void_p] * (3 if geometry else 2))
+    fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_inputs(idx, pos, res_id, asym_id):
+def _check_inputs(idx, pos, res_id, asym_id, dev):
+    """(p, n, k) once every argument's device, dtype, shape and contiguity
+    are what the kernel takes."""
     p, n, k = idx.shape
-    dev = pos.device
     _build.require(idx, "idx", torch.int32, (p, n, k), dev)
     _build.require(pos, "pos", torch.float32, (p, n, 3, 3), dev)
     _build.require(res_id, "res_id", torch.int32, (n,), dev)
     _build.require(asym_id, "asym_id", torch.int32, (n,), dev)
-    return p, n, k, dev
+    return p, n, k
 
 
 def build_edge_table(idx, pos, res_id, asym_id, *, normalize: bool):
     """The edge table of the selected edges; see the module docstring."""
-    if pos.device.type == "cpu":
+    dev = pos.device
+    if dev.type == "cpu":
         return build_edge_table_plain(idx, pos, res_id, asym_id, normalize=normalize)
-    if pos.device.type != "cuda":
-        raise ValueError(f"build_edge_table: no kernel for device {pos.device}")
-    p, n, k, dev = _check_inputs(idx, pos, res_id, asym_id)
-    ebin = torch.empty((p, n, k, EBIN_WIDTH), dtype=torch.int32, device=dev)
-    egeo = torch.empty((p, n, k, EGEO_WIDTH), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _lib("edge_table_launch", True)(
-            idx.data_ptr(), pos.data_ptr(), res_id.data_ptr(),
-            asym_id.data_ptr(), _bounds(dev).data_ptr(), p, n, k, int(normalize),
-            ebin.data_ptr(), egeo.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
+    if dev.type != "cuda":
+        raise ValueError(f"build_edge_table: no kernel for device {dev}")
+    p, n, k = _check_inputs(idx, pos, res_id, asym_id, dev)
+    ebin = torch.empty(p, n, k, EBIN_WIDTH, dtype=torch.int32, device=dev)
+    egeo = torch.empty(p, n, k, EGEO_WIDTH, dtype=torch.float32, device=dev)
+    rc = _build.launch(_lib("edge_table_launch"), dev, idx.data_ptr(), pos.data_ptr(),
+                       res_id.data_ptr(), asym_id.data_ptr(), p, n, k, int(normalize),
+                       ebin.data_ptr(), egeo.data_ptr())
     _build.check(rc, "edge_table")
     build_edge_table.launches += 1
     return ebin, egeo
@@ -125,22 +127,44 @@ def build_edge_table(idx, pos, res_id, asym_id, *, normalize: bool):
 def edge_bins(idx, pos, res_id, asym_id):
     """The bins of the selected edges alone; arguments and ebin as
     `build_edge_table`."""
-    if pos.device.type == "cpu":
+    dev = pos.device
+    if dev.type == "cpu":
         return edge_bins_plain(idx, pos, res_id, asym_id)
-    if pos.device.type != "cuda":
-        raise ValueError(f"edge_bins: no kernel for device {pos.device}")
-    p, n, k, dev = _check_inputs(idx, pos, res_id, asym_id)
-    ebin = torch.empty((p, n, k, EBIN_WIDTH), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _lib("edge_bins_launch", False)(
-            idx.data_ptr(), pos.data_ptr(), res_id.data_ptr(), asym_id.data_ptr(),
-            _bounds(dev).data_ptr(), p, n, k, ebin.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    if dev.type != "cuda":
+        raise ValueError(f"edge_bins: no kernel for device {dev}")
+    p, n, k = _check_inputs(idx, pos, res_id, asym_id, dev)
+    ebin = torch.empty(p, n, k, EBIN_WIDTH, dtype=torch.int32, device=dev)
+    rc = _build.launch(_lib("edge_bins_launch"), dev, idx.data_ptr(), pos.data_ptr(),
+                       res_id.data_ptr(), asym_id.data_ptr(), p, n, k, ebin.data_ptr())
     _build.check(rc, "edge_bins")
     edge_bins.launches += 1
     return ebin
 
 
+BIN_FAMILIES = (DIST_BOUNDARIES, ANGLE_BOUNDARIES, PHI_BOUNDARIES)
+
+
+def bin_values(x, family: int):
+    """The bins of float32 values x in one family (0 dist, 1 angle, 2 phi),
+    by the edge kernel's bin code on a CUDA tensor (a test entry of
+    csrc/edge_table.cu) and by `bin_index` on a CPU tensor: count(x > b)
+    over the family's boundaries b, NaN -> 0."""
+    if family not in (0, 1, 2):
+        raise ValueError(f"bin_values: family {family} is not 0, 1 or 2")
+    dev = x.device
+    if dev.type == "cpu":
+        return bin_index(x, BIN_FAMILIES[family])
+    if dev.type != "cuda":
+        raise ValueError(f"bin_values: no kernel for device {dev}")
+    _build.require(x, "x", torch.float32, tuple(x.shape), dev)
+    out = torch.empty(x.shape, dtype=torch.int32, device=dev)
+    rc = _build.launch(_lib("edge_bin_values_launch"), dev, x.data_ptr(), x.numel(), family,
+                       out.data_ptr())
+    _build.check(rc, "edge_bin_values")
+    bin_values.launches += 1
+    return out
+
+
 build_edge_table.launches = 0
 edge_bins.launches = 0
+bin_values.launches = 0

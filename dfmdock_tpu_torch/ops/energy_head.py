@@ -76,12 +76,10 @@ def fused_energy(hr, hl, pair_mask, ln_g, ln_b, w2):
     tiles = -(-n // ROWS_PER_BLOCK)
     partial = torch.empty((p, tiles, 2), dtype=f32, device=dev)  # per block: num, den
     out = torch.empty((p,), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _lib()(
-            hr.data_ptr(), hl.data_ptr(), pair_mask.data_ptr(), ln_g.data_ptr(),
-            ln_b.data_ptr(), w2.data_ptr(), p, n, c, partial.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
+    rc = _build.launch(
+        _lib(), dev, hr.data_ptr(), hl.data_ptr(), pair_mask.data_ptr(), ln_g.data_ptr(),
+        ln_b.data_ptr(), w2.data_ptr(), p, n, c, partial.data_ptr(), out.data_ptr(),
+    )
     _build.check(rc, "energy_head")
     fused_energy.launches += 1
     return out

@@ -161,14 +161,13 @@ def fused_edge_layer(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l
         extra = (wc.data_ptr(), b_c0.data_ptr(), w_c1.data_ptr(), trans.data_ptr())
     else:
         extra = (None, None, None, None)
-    with torch.cuda.device(dev):
-        rc = _lib()(
-            idx.data_ptr(), edge_mask.data_ptr(), ebin.data_ptr(), egeo.data_ptr(),
-            a.data_ptr(), B.data_ptr(), t_sp.data_ptr(), t_p.data_ptr(), w_r.data_ptr(),
-            w1.data_ptr(), b_l1.data_ptr(), w_att.data_ptr(), b_att.data_ptr(), *extra[:3],
-            agg.data_ptr(), extra[3], p, n, k, c, int(coord),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    rc = _build.launch(
+        _lib(), dev,
+        idx.data_ptr(), edge_mask.data_ptr(), ebin.data_ptr(), egeo.data_ptr(),
+        a.data_ptr(), B.data_ptr(), t_sp.data_ptr(), t_p.data_ptr(), w_r.data_ptr(),
+        w1.data_ptr(), b_l1.data_ptr(), w_att.data_ptr(), b_att.data_ptr(), *extra[:3],
+        agg.data_ptr(), extra[3], p, n, k, c, int(coord),
+    )
     _build.check(rc, "fused_egcl")
     if coord:
         fused_edge_layer.coord_launches += 1

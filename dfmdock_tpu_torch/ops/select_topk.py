@@ -87,12 +87,10 @@ def select_topk(dist, y, node_mask, knn: int = 20, sample_size: int = 40):
     k = knn + sample_size
     idx = torch.empty((*lead, n, k), dtype=torch.int32, device=dev)
     edge_mask = torch.empty((*lead, n, k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _lib()(
-            dist.data_ptr(), y.data_ptr(), node_mask.data_ptr(), poses, n, knn,
-            sample_size, idx.data_ptr(), edge_mask.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    rc = _build.launch(
+        _lib(), dev, dist.data_ptr(), y.data_ptr(), node_mask.data_ptr(), poses, n, knn,
+        sample_size, idx.data_ptr(), edge_mask.data_ptr(),
+    )
     _build.check(rc, "select_topk")
     select_topk.launches += 1
     return idx, edge_mask

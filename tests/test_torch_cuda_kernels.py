@@ -22,7 +22,7 @@ from dfmdock_tpu_torch.data.batching import pad_complex
 from dfmdock_tpu_torch.data.convert import load_npz_complex
 from dfmdock_tpu_torch.data.dataset import batch_to_tensors, complex_to_batch
 from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
-from dfmdock_tpu_torch.features.sixd import SPATIAL_DIM, pairwise_ca_dist
+from dfmdock_tpu_torch.features.sixd import SPATIAL_DIM, pairwise_ca_dist, sixd_values_at
 from dfmdock_tpu_torch.models.edges import sample_gumbel, select_edges, select_y
 from dfmdock_tpu_torch.ops import edge_table as et
 from dfmdock_tpu_torch.ops.energy_head import fused_energy, fused_energy_plain
@@ -181,6 +181,116 @@ def test_edge_bins(dev):
     assert torch.equal(ebin, table)
     valid = edge_mask > 0.5
     assert torch.equal(ebin[valid], plain[valid])
+
+
+@pytest.mark.parametrize("family", [0, 1, 2], ids=["dist", "angle", "phi"])
+def test_bin_values_at_boundaries(dev, family):
+    """The kernel's bin code (index arithmetic and its fix-up) against the
+    plain count(x > b), exact: every boundary, its float32 neighbour on each
+    side, NaN, +-inf, +-0 and values beyond either end."""
+    b = np.array(et.BIN_FAMILIES[family], np.float32)
+    x = np.concatenate([b, np.nextafter(b, np.float32(np.inf)),
+                        np.nextafter(b, np.float32(-np.inf)),
+                        np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30,
+                                  b[0] - 100.0, b[-1] + 100.0], np.float32),
+                        np.random.RandomState(family).uniform(-400, 400, 4096).astype(np.float32)])
+    x_cpu = torch.from_numpy(x)
+    before = et.bin_values.launches
+    got = et.bin_values(x_cpu.to(dev), family).cpu()
+    assert et.bin_values.launches == before + 1
+    want = et.bin_values(x_cpu, family)  # the plain count on the CPU
+    assert torch.equal(got, want)
+    assert torch.equal(want[:len(b)], torch.arange(len(b), dtype=torch.int32))
+
+
+def backbone(ca, rng):
+    """N, CA, C of residues at the given CA positions, each a fixed
+    template turned by its own random rotation."""
+    tmpl = np.array([[-1.2, 0.6, 0.2], [0.0, 0.0, 0.0], [1.3, 0.5, -0.2]])
+    q, _ = np.linalg.qr(rng.randn(len(ca), 3, 3))
+    return (np.einsum("nij,aj->nai", q, tmpl) + ca[:, None, :]).astype(np.float32)
+
+
+def test_bins_at_exact_distance_boundaries(dev):
+    """CA distances that land exactly on 3.25 + 1.25 i (their squares and
+    square roots are exact in float32) take bin i, as the plain count does:
+    row 0 sits at the origin, rows 1..39 on the x axis at each boundary;
+    every bin of every edge equal to plain."""
+    rng = np.random.RandomState(31)
+    n, k = 48, 40
+    ca = rng.randn(n, 3) * 20.0
+    ca[0] = 0.0
+    ca[1:40] = [[d, 0.0, 0.0] for d in et.DIST_BOUNDARIES]
+    pos = torch.from_numpy(backbone(ca, rng))[None].to(dev)
+    idx = rng.randint(0, n, (1, n, k)).astype(np.int32)
+    idx[0, 0] = np.r_[1:40, 0]  # row 0: every boundary, then itself
+    idx = torch.from_numpy(idx).to(dev)
+    res_id = torch.arange(n, dtype=torch.int32, device=dev)
+    asym_id = (torch.arange(n, device=dev) >= 30).to(torch.int32)
+    ebin = et.edge_bins(idx, pos, res_id, asym_id)
+    table, _ = et.build_edge_table(idx, pos, res_id, asym_id, normalize=True)
+    plain = et.edge_bins_plain(idx, pos, res_id, asym_id)
+    torch.cuda.synchronize()
+    assert torch.equal(ebin[0, 0, :39, et.E_DB].cpu(), torch.arange(39, dtype=torch.int32))
+    assert torch.equal(ebin, table) and torch.equal(ebin, plain)
+
+
+def poisoned(shape, dtype, dev):
+    """Free a block of this size filled with a poison value just before the
+    wrapper allocates its output, so a slot the kernel never writes shows
+    (the caching allocator hands the freed block back)."""
+    junk = torch.full(shape, -7, dtype=dtype, device=dev)
+    del junk
+
+
+@pytest.mark.parametrize("poses,n_rec,n_lig,pad_to,sample_size", [
+    pytest.param(1, 223, 172, 448, 40, id="P1-K60"),   # one pose, K = 60
+    pytest.param(2, 223, 172, 448, 0, id="P2-K20"),    # kNN alone, K = 20
+    pytest.param(2, 24, 16, 64, 40, id="small-masked"),  # 40 valid of 64, K = 60
+])
+def test_edge_table_rows(dev, poses, n_rec, n_lig, pad_to, sample_size):
+    """The warp-per-row kernel on shapes that leave lanes of a warp idle:
+    the bins-only mode equal to the table's ebin, relpos exact, the other
+    bins equal to plain on valid edges except where plain's value lies
+    within rounding of a boundary (1e-4 A, 1e-3 deg), geometry finite and
+    within rel 1e-4 of plain, every slot written."""
+    raw = load_npz_complex(NPZ)
+    for side, n_keep in (("rec", n_rec), ("lig", n_lig)):
+        for key in ("x", "pos", "seq"):
+            raw[f"{side}_{key}"] = raw[f"{side}_{key}"][:n_keep]
+    batch = batch_to_tensors(complex_to_batch(raw, pad_to=pad_to), dev)
+    gen = torch.Generator(dev).manual_seed(poses + pad_to)
+    pos, _, _ = randomize_pose(gen, batch["pos"], batch["lig_mask"], batch["node_mask"],
+                               SamplerConfig(), poses)
+    pos = pos.contiguous()
+    idx, edge_mask = select_edges(pairwise_ca_dist(pos), batch["node_mask"],
+                                  sample_size=sample_size, generator=gen)
+    p, n, k = idx.shape
+    assert k == 20 + sample_size
+    args = (idx, pos, batch["res_id"], batch["asym_id"])
+    poisoned((p, n, k, et.EBIN_WIDTH), torch.int32, dev)
+    ebin = et.edge_bins(*args)
+    poisoned((p, n, k, et.EBIN_WIDTH), torch.int32, dev)
+    table, egeo = et.build_edge_table(*args, normalize=True)
+    ref, geo_ref = et.build_edge_table_plain(*args, normalize=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ebin, table)
+    assert torch.equal(table[..., et.E_RP], ref[..., et.E_RP])
+    dist, omega, theta, phi, _ = sixd_values_at(pos, idx)
+    valid = edge_mask > 0.5
+    near22 = (dist - 22.0).abs() < 1e-4
+    for col, val, bounds, tol in ((et.E_DB, dist, et.DIST_BOUNDARIES, 1e-4),
+                                  (et.E_OB, omega, et.ANGLE_BOUNDARIES, 1e-3),
+                                  (et.E_TB, theta, et.ANGLE_BOUNDARIES, 1e-3),
+                                  (et.E_PB, phi, et.PHI_BOUNDARIES, 1e-3)):
+        b = torch.tensor(bounds, device=dev)
+        near = (val[..., None] - b).abs().min(-1).values < tol
+        if col != et.E_DB:
+            near |= near22
+        assert not ((table[..., col] != ref[..., col]) & valid & ~near).any(), col
+    assert (table[..., et.E_DB] >= 0).all() and (table[..., et.E_DB] < 40).all()
+    assert torch.isfinite(egeo).all()
+    assert (egeo[valid] - geo_ref[valid]).abs().max() <= 1e-4 * geo_ref[valid].abs().max()
 
 
 def egcl_inputs(dev, poses, n_rec, n_lig, pad_to, seed):

@@ -60,3 +60,40 @@ def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
     assert torch.equal(et.edge_bins(*args), et.edge_bins_plain(*args))
     assert et.edge_bins.launches == before
 
+
+
+@pytest.mark.parametrize("family,lo,hi,num_bins", [(0, 3.25, 50.75, 40), (1, -180.0, 180.0, 24),
+                                                   (2, 0.0, 180.0, 12)],
+                         ids=["dist", "angle", "phi"])
+def test_bin_values_plain_matches_jax_at_boundaries(family, lo, hi, num_bins):
+    """The plain bin count that the kernel's bin code (bin_values on the
+    card) is held against equals the JAX package's _get_bins, exactly, at
+    every boundary, its float32 neighbour on each side, NaN, +-inf and +-0;
+    a CPU tensor runs it and counts no launch.  Subnormal neighbours (those
+    of phi's boundary 0) are left out here: XLA's CPU backend flushes them
+    to zero, PyTorch and the CUDA kernel do not (the cuda test holds the
+    kernel to the plain count on them)."""
+    from dfmdock_tpu.features.sixd import _get_bins
+
+    b = np.array(et.BIN_FAMILIES[family], np.float32)
+    x = np.concatenate([b, np.nextafter(b, np.float32(np.inf)), np.nextafter(b, np.float32(-np.inf)),
+                        np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)])
+    x = x[~((x != 0) & (np.abs(x) < np.finfo(np.float32).tiny))]
+    before = et.bin_values.launches
+    got = et.bin_values(torch.from_numpy(x), family).numpy()
+    assert et.bin_values.launches == before
+    np.testing.assert_array_equal(got, np.asarray(_get_bins(jnp.asarray(x), lo, hi, num_bins)))
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor on neither the CPU nor a CUDA card raises: no kernel, no
+    plain fallback."""
+    meta = lambda *shape, dtype=torch.float32: torch.empty(*shape, dtype=dtype, device="meta")
+    idx = meta(1, 4, 2, dtype=torch.int32)
+    args = (idx, meta(1, 4, 3, 3), meta(4, dtype=torch.int32), meta(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="no kernel"):
+        et.build_edge_table(*args, normalize=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        et.edge_bins(*args)
+    with pytest.raises(ValueError, match="no kernel"):
+        et.bin_values(meta(8), 0)

@@ -23,7 +23,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      forward through the plain versions (CPU), full width, seeded weights:
      fast() at t in {0.1, 0.5, 0.9} on injected edges, fast() selecting its
      own edges from injected Gumbel noise, and fast(edge_table_kernel=False),
-     full forwards (energy through fused_energy);
+     full forwards (energy through fused_energy); every output's error is
+     printed, and a failing case relaunches each kernel call of its forward
+     on the recorded inputs (the forward's output against a relaunch, two
+     relaunches, the plain version) before the run fails.  Then the same
+     for the DFMDock lineage (DFMDockModel, trained weights from
+     ckpts/db5_holdout_dfmdock/weights.npz) at t in {0.1, 0.5}: six
+     agg-only fused_egcl calls a forward, no coord or energy kernel;
   5. dock: the dock CLI in-process on 1AVX, 16 poses x 40 steps, after a
      warm-up run; steps/s, each kernel's time, launches and bound;
   6. sampler: denoising steps/s over EMSampler.sample alone (the same 16
@@ -37,6 +43,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and the kernel line checks, times and bounds fused_energy on them;
   9. sweep: the sweep CLI over 1AVX, then --resume over 1AVX and 7CEI, 16
      poses x 40 steps each; wall per complex and the rows written;
+  9b. trained mlsb (ckpts/db5_demo/weights.npz): the dock of 1AVX (16 poses
+     x 40 steps; min-energy pick and best-of-16 DockQ beside the JAX demo's
+     v5e record) and the sweep over all 24 DB5 complexes (16 poses, seed 5),
+     gated against the JAX record eval_all.csv: the mean DockQ over all
+     poses and the min-energy-pick mean each at least the record's less its
+     bootstrap margin (quality_gate);
+  9c. the DFMDock lineage: the sweep --lineage dfmdock with its trained
+     weights (40 poses, seed 5) over the four complexes it was trained on,
+     gated against eval_train.csv, and over the four held out, beside
+     eval_holdout.csv; six fused_egcl launches per forward and no
+     fused_egcl_coord or fused_energy launch; a 10-step profile at P = 16;
+  9d. Picard latency mode (trained mlsb, 1AVX, one pose): the dock with
+     --picard-iters 10 beside the sequential --ode dock (walls); Picard at
+     K = T = 40 bit-equal to K = T + 1 and to the sequential ODE run at
+     its launch shape, and against the 1-pose sequential ODE from the same
+     generator seed step by step, with the edges and bins of every forward
+     compared (PICARD_STEP_TOL);
  10. kernel routes: 40-step samples of 16 poses under one generator seed
      through fast(), fast(select_kernel=True) and fast(edge_table_kernel=
      False).  Edge selection has one route (select_topk, ties to the lower
@@ -45,14 +68,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
 The kernel table after phase 10 gives each kernel's time by CUDA events,
 its device time (torch.profiler), its enqueue time on the host (host_ms:
 1,000 calls with no synchronize), its plain version's time and its bound.
-Each main path (phases 5, 8, 9 and the routes of 10) runs with the launch
-counts set to 0 just before it and read just after; a kernel of the path
-that did not launch fails the run.  The last line is {"ok": true,
+Each main path (phases 5, 8, 9, 9b-9d and the routes of 10) runs with the
+launch counts set to 0 just before it and read just after; a kernel of the
+path that did not launch (or, on the DFMDock lineage, one that must not
+run and did) fails the run.  The last line is {"ok": true,
 "device": {...}}; the line before it lists the kernels.  Without a CUDA card
 the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import glob
 import json
@@ -67,6 +92,9 @@ import time
 import numpy as np
 import torch
 
+import dfmdock_tpu_torch.models.edges as edges_mod
+import dfmdock_tpu_torch.models.egnn as egnn_mod
+import dfmdock_tpu_torch.models.score_net as score_net_mod
 from dfmdock_tpu_torch.cli import dock, sweep
 from dfmdock_tpu_torch.cli.common import build_sampler, load_model
 from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
@@ -101,7 +129,8 @@ from dfmdock_tpu_torch.ops.edge_table import (
 from dfmdock_tpu_torch.ops.energy_head import fused_energy, fused_energy_plain
 from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, fused_edge_layer_plain
 from dfmdock_tpu_torch.ops.select_topk import NEG_INF, select_topk, select_topk_plain
-from dfmdock_tpu_torch.sampler.em import randomize_pose
+from dfmdock_tpu_torch.sampler import PicardSampler
+from dfmdock_tpu_torch.sampler.em import modify_coords, randomize_pose, step_schedule
 
 NPZ = os.path.join("data", "db5_npz", "1AVX.npz")
 P, N_PAD, STEPS = 16, 448, 40
@@ -118,6 +147,12 @@ PARITY_TOL = {"energy": 1e-2, "tr_score": 1e-2, "rot_score": 2e-2, "f": 5e-2,
 PARITY_ABS = {"energy": 5e-3, "tr_score": 1e-3, "rot_score": 2e-3, "f": 5e-3,
               "ires": 5e-3}
 F32_PARITY_REL = 1e-3
+SCORE_NET_OUTPUTS = ("energy", "tr_score", "rot_score", "f", "ires")
+# The DFMDock lineage's outputs under the tolerance of the ScoreNet output
+# they stand for: its interface logits as `ires`, its confidence logit (a
+# masked mean over the same pairs as the energy) as `energy`.
+DFMDOCK_OUTPUTS = ("energy", "tr_score", "rot_score", "f", "ires_logits", "confidence_logits")
+PARITY_ALIAS = {"ires_logits": "ires", "confidence_logits": "energy"}
 # A bin may differ only where the plain version's value lies this close to
 # one of its family's boundaries (rounding of atan2f/acosf/sqrtf and of the
 # summation order differs between the kernel and PyTorch's own kernels).
@@ -183,6 +218,36 @@ ROUTE_KERNELS = {
 }
 RERANK_T, RERANK_DRAWS, ENERGY_DRAWS = 5, 4, 4
 SWEEP_IDS = ("1AVX", "7CEI")
+# The trained weights (scripts/export_torch_weights.py) and the JAX
+# package's per-pose records of the same sweeps on v5e.
+DEMO_NPZ = os.path.join("ckpts", "db5_demo", "weights.npz")
+DEMO_RECORD = os.path.join("ckpts", "db5_demo", "eval_all.csv")
+DFMDOCK_NPZ = os.path.join("ckpts", "db5_holdout_dfmdock", "weights.npz")
+DFMDOCK_TRAIN = ("1AVX", "1ZHI", "2SNI", "4POU")
+DFMDOCK_HOLDOUT = ("1QA9", "7CEI", "2SIC", "1JPS")
+DFMDOCK_POSES = 40
+# the DFMDock lineage's EGNN is agg-only and its energy head plain torch
+DFMDOCK_KERNELS = ("select_topk", "edge_table", "fused_egcl")
+DFMDOCK_ABSENT = ("fused_egcl_coord", "fused_energy")
+# Quality gates against a record: the margin is the 0.1% quantile of the
+# difference between two bootstrap resamples of the record (10,000 draws),
+# so a port that docks like the record fails about one run in a thousand.
+BOOT_DRAWS, BOOT_Q = 10_000, 0.001
+ACCEPTABLE = 0.23  # DockQ of an acceptable pose (CAPRI)
+# Picard at K = T against the sequential ODE on the same start and noise.
+# Run with every forward at Picard's launch shape (T poses), the sequential
+# ODE does the same arithmetic and must equal Picard's fixed point bit for
+# bit.  The 1-pose sequential run's forward is another launch shape, so
+# cuBLAS takes other GEMM tiles and sums in another order: the drift at the
+# same state differs by f32 rounding, which one step turns into ~1e-5 A.
+# Each step of Picard is held to PICARD_STEP_TOL on the 1-pose run's
+# states, and the two trajectories to PICARD_STEP_TOL up to the first
+# forward whose discrete features differ: a row's neighbour set (a kNN or
+# sampled-edge near-tie) or an edge's 6D bin (a state at a bin boundary),
+# which the rounding tips.  From there they are two trajectories of the
+# ODE, and only with the same features throughout are the final poses
+# held to PICARD_STEP_TOL.
+PICARD_STEP_TOL = 1e-3  # Angstrom
 
 
 def log(msg):
@@ -243,15 +308,18 @@ def device_ms(fn, calls=10, per_kernel=False):
         "(")[0][:40]
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without device events
+    for _ in range(3):  # a trace now and then comes back without (all) device events
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        times = {name(e): dev_us(e) / 1e3 / calls for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA}
-        if times:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        times = {name(e): dev_us(e) / 1e3 / calls for e in events}
+        if events and max(e.count for e in events) >= calls:  # every call traced
             break
+    else:
+        times = {}
     if per_kernel:
         return times
     return sum(times.values()) if times else float("nan")
@@ -275,10 +343,10 @@ def counts():
             "edge_bins": edge_bins.launches}
 
 
-def run_path(name, kernels, fn):
+def run_path(name, kernels, fn, absent=()):
     """Run one main path with the launch counts set to 0 just before it and
-    read just after; fail if one of `kernels` did not launch.  Returns
-    (fn's result, wall seconds, counts)."""
+    read just after; fail if one of `kernels` did not launch, or one of
+    `absent` did.  Returns (fn's result, wall seconds, counts)."""
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -289,6 +357,9 @@ def run_path(name, kernels, fn):
     for k in kernels:
         if launches[k] == 0:
             raise AssertionError(f"the {name} run launched no {k} kernel")
+    for k in absent:
+        if launches[k] != 0:
+            raise AssertionError(f"the {name} run launched {launches[k]} {k} kernels")
     log(f"# launches in the {name} run: {json.dumps(launches)}")
     return result, wall, launches
 
@@ -561,12 +632,115 @@ def energy_cases(raw, device, errs):
                  energy_inputs(batch, native(4), 1024, 14, device))
 
 
-def parity_phase(raw, device):
-    """ScoreNet through the kernels (card) vs through the plain versions
-    (CPU), same seeded weights, full forwards: fast() and
-    fast(edge_table_kernel=False) on the same injected edges, fast()
-    selecting its own edges (select_topk on each side) from the same
-    injected Gumbel noise."""
+# the kernel wrappers as the models call them: (kernel, module that calls
+# it, name there, wrapper, plain version)
+KERNEL_SITES = (
+    ("select_topk", edges_mod, "select_topk", select_topk, select_topk_plain),
+    ("edge_table", egnn_mod, "build_edge_table", build_edge_table, build_edge_table_plain),
+    ("edge_bins", egnn_mod, "edge_bins", edge_bins, edge_bins_plain),
+    ("fused_egcl", egnn_mod, "fused_edge_layer", fused_edge_layer, fused_edge_layer_plain),
+    ("fused_energy", score_net_mod, "fused_energy", fused_energy, fused_energy_plain),
+)
+
+
+def _parts(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@contextlib.contextmanager
+def recording_kernels():
+    """Every kernel call the models make inside the block, recorded as
+    (kernel, args, kwargs, a copy of its outputs) in call order."""
+    calls = []
+
+    def recorder(name, fn):
+        def rec(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls.append((name, args, kwargs, tuple(o.clone() for o in _parts(out))))
+            return out
+        return rec
+
+    for name, module, attr, fn, _ in KERNEL_SITES:
+        setattr(module, attr, recorder(name, fn))
+    try:
+        yield calls
+    finally:
+        for _, module, attr, fn, _ in KERNEL_SITES:
+            setattr(module, attr, fn)
+
+
+def diagnose_kernels(calls):
+    """Relaunch each recorded kernel call of a forward twice on its recorded
+    inputs and run its plain version: is the forward's own output what a
+    relaunch gives (bit for bit), are two relaunches equal, and how far is
+    each from the plain version.  Prints one line per call and output and
+    returns them as dicts."""
+    sites = {name: (fn, plain) for name, _, _, fn, plain in KERNEL_SITES}
+    layer, rows = 0, []
+    for name, args, kwargs, recorded in calls:
+        fn, plain = sites[name]
+        with torch.no_grad():
+            again, twice = _parts(fn(*args, **kwargs)), _parts(fn(*args, **kwargs))
+            ref = _parts(plain(*args, **kwargs))
+        torch.cuda.synchronize()
+        tag = name
+        if name == "fused_egcl":
+            tag = f"fused_egcl layer {layer}" + (" (coord)" if len(recorded) == 2 else "")
+            layer += 1
+        for i, (r, a, b, p) in enumerate(zip(recorded, again, twice, ref)):
+            a_err, r_err, _ = max_errs(r.cpu(), p.cpu())
+            row = {"call": tag, "output": i, "recorded_is_relaunch": torch.equal(r, a),
+                   "relaunch_diff": float((r.double() - a.double()).abs().max()),
+                   "relaunches_equal": torch.equal(a, b), "plain_abs": a_err, "plain_rel": r_err}
+            rows.append(row)
+            log(f"#   diagnose {tag} output {i}: recorded == relaunch "
+                f"{row['recorded_is_relaunch']} (max |diff| {row['relaunch_diff']:.3e}), two "
+                f"relaunches equal {row['relaunches_equal']}, recorded vs plain max abs "
+                f"{a_err:.3e} rel {r_err:.3e}")
+    return rows
+
+
+def parity_errors(outputs, o_k, o_p):
+    """{output: (max abs, rel, ok)} of a kernel-path forward's outputs o_k
+    against the plain path's o_p (phase 4's tolerances), num_clashes exact."""
+    errs = {}
+    for name in outputs:
+        tol = PARITY_ALIAS.get(name, name)
+        a_err, r_err, scale = max_errs(o_k[name].cpu(), o_p[name].cpu())
+        ok = ((r_err < PARITY_TOL[tol] or a_err < PARITY_ABS[tol] < scale)
+              and r_err <= F32_PARITY_REL)
+        errs[name] = (a_err, r_err, ok)
+    same = torch.equal(o_k["num_clashes"].cpu(), o_p["num_clashes"].cpu())
+    errs["num_clashes"] = (0.0 if same else 1.0, 0.0 if same else 1.0, same)
+    return errs
+
+
+def parity_check(label, outputs, net_k, net_p, batch, pos, t, kw_k, kw_p):
+    """One kernel-path forward (card) against the plain path (CPU): every
+    output's error is printed; on a failure each kernel call of the forward
+    is diagnosed (diagnose_kernels) before the check fails."""
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    with torch.no_grad(), recording_kernels() as calls:
+        o_k = net_k(batch, pos, t, **kw_k)
+        torch.cuda.synchronize()
+    with torch.no_grad():
+        o_p = net_p(cpu(batch), pos.cpu(), t, **kw_p)
+    errs = parity_errors(outputs, o_k, o_p)
+    for name, (a_err, r_err, ok) in errs.items():
+        log(f"# parity {label} t={t} {name}: max abs {a_err:.3e} rel {r_err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+    failed = [name for name, (_, _, ok) in errs.items() if not ok]
+    if failed:
+        log(f"# parity {label} t={t} failed on {failed}: the forward's "
+            f"{len(calls)} kernel calls, each relaunched and against its plain version:")
+        diagnose_kernels(calls)
+        raise AssertionError(f"parity failed: {label} t={t} {failed}")
+    return calls
+
+
+def parity_inputs(raw, device):
+    """Phase 4's inputs: 1AVX padded to N_PAD, its native pose and one random
+    pose, their injected edges and one Gumbel draw for both."""
     batch, pos, idx, edge_mask = edge_inputs(raw, N_PAD, 2, 7, device)
     native = batch["pos"][None]
     pos = torch.cat([native, pos[:1]]).contiguous()  # native + one random pose
@@ -576,7 +750,23 @@ def parity_phase(raw, device):
     edge_mask = torch.cat([mask_n, edge_mask[:1]]).contiguous()
     n = pos.shape[1]
     gumbel = sample_gumbel((2, n, n), torch.Generator(device).manual_seed(9), device)
-    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    return batch, pos, (idx, edge_mask), gumbel
+
+
+def injected(inject, edges, gumbel):
+    """(card kwargs, CPU kwargs) of a forward on injected edges or noise."""
+    if inject == "edges":
+        return dict(edges=edges), dict(edges=tuple(e.cpu() for e in edges))
+    return dict(gumbel=gumbel), dict(gumbel=gumbel.cpu())
+
+
+def parity_phase(raw, device):
+    """ScoreNet through the kernels (card) vs through the plain versions
+    (CPU), same seeded weights, full forwards: fast() and
+    fast(edge_table_kernel=False) on the same injected edges, fast()
+    selecting its own edges (select_topk on each side) from the same
+    injected Gumbel noise."""
+    batch, pos, edges, gumbel = parity_inputs(raw, device)
     routes = (
         ("fast()", ModelConfig.fast(), (0.1, 0.5, 0.9), "edges"),
         ("fast() selecting", ModelConfig.fast(), (0.5,), "gumbel"),
@@ -587,26 +777,10 @@ def parity_phase(raw, device):
         cfg = DFMDockConfig(model=mcfg)
         net_k = load_model(None, cfg, device, seed=0)
         net_p = load_model(None, cfg, torch.device("cpu"), seed=0)
-        if inject == "edges":
-            kw_k = dict(edges=(idx, edge_mask))
-            kw_p = dict(edges=(idx.cpu(), edge_mask.cpu()))
-        else:
-            kw_k, kw_p = dict(gumbel=gumbel), dict(gumbel=gumbel.cpu())
+        kw_k, kw_p = injected(inject, edges, gumbel)
         reset_counts()
-        with torch.no_grad():
-            for t in ts:
-                o_k = net_k(batch, pos, t, **kw_k)
-                o_p = net_p(cpu(batch), pos.cpu(), t, **kw_p)
-                for name in PARITY_TOL:
-                    a_err, r_err, scale = max_errs(o_k[name].cpu(), o_p[name])
-                    ok = (r_err < PARITY_TOL[name]
-                          or a_err < PARITY_ABS[name] < scale) and r_err <= F32_PARITY_REL
-                    log(f"# parity {label} t={t} {name}: max abs {a_err:.3e} "
-                        f"rel {r_err:.3e} {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(f"ScoreNet parity failed: {label} {name} t={t}")
-                if not torch.equal(o_k["num_clashes"].cpu(), o_p["num_clashes"]):
-                    raise AssertionError(f"ScoreNet parity failed: {label} num_clashes")
+        for t in ts:
+            parity_check(label, SCORE_NET_OUTPUTS, net_k, net_p, batch, pos, t, kw_k, kw_p)
         torch.cuda.synchronize()
         log(f"# parity {label}: kernel launches {json.dumps(counts())}")
 
@@ -661,13 +835,13 @@ def sampler_phase(raw, device, reps=3):
     return P * STEPS / wall
 
 
-def profile_phase(raw, device, steps=10, top=12):
+def profile_phase(raw, device, steps=10, top=12, lineage="mlsb", ckpt=None):
     """Device time by kernel over one sample of P poses x `steps` steps (+ the
-    final full forward), after a warm-up sample."""
+    final full forward) of a lineage's model, after a warm-up sample."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = DFMDockConfig(model=ModelConfig.fast(), sampler=SamplerConfig(num_steps=steps))
-    sampler = build_sampler(load_model(None, cfg, device), cfg)
+    sampler = build_sampler(load_model(ckpt, cfg, device, lineage=lineage), cfg)
     batch = batch_to_tensors(complex_to_batch(raw), device)
     gen = torch.Generator(device).manual_seed(0)
     sampler.sample(batch, P, gen)
@@ -685,7 +859,7 @@ def profile_phase(raw, device, steps=10, top=12):
     if busy_ms == 0:
         log("# profile: the profiler recorded no device time (not measured)")
         return
-    log(f"# profile P={P} steps={steps}+final forward: wall {wall_ms:.1f} ms, device busy "
+    log(f"# profile {lineage} P={P} steps={steps}+final forward: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
         f"{100 * (1 - busy_ms / wall_ms):.1f}%")
     for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
@@ -701,7 +875,7 @@ def profile_phase(raw, device, steps=10, top=12):
         hits = [e for e in kernels if key in e.key]
         launches = sum(e.count for e in hits if "reduce" not in e.key)
         if launches:
-            log(f"# profile {name}: {sum(map(dev_us, hits)) / 1e3 / launches:.4f} ms "
+            log(f"# profile {lineage} {name}: {sum(map(dev_us, hits)) / 1e3 / launches:.4f} ms "
                 f"device time per launch (x{launches})")
 
 
@@ -717,8 +891,6 @@ def rank_phase(out_root):
     the inputs of its first fused_energy call (the forward at the final
     poses), on which the kernel line times fused_energy and counts its
     bound."""
-    import dfmdock_tpu_torch.models.score_net as score_net
-
     if not os.path.exists(dock.DEFAULT_RERANKER):
         raise AssertionError(f"reranker weights missing: {dock.DEFAULT_RERANKER}")
     result, calls = None, []
@@ -733,13 +905,13 @@ def rank_phase(out_root):
             ("energy-draws 4", ["--energy-draws", str(ENERGY_DRAWS)],
              ["energy_first_draw", "icons", "snorm"], 1 + ENERGY_DRAWS)):
         out = os.path.join(out_root, label.replace(" ", "_"))
-        score_net.fused_energy = recording if result is None else fused_energy
+        score_net_mod.fused_energy = recording if result is None else fused_energy
         try:
             _, wall, launches = run_path(label, DOCK_KERNELS, lambda: dock.main(
                 ["--npz", NPZ, "--num-samples", str(P), "--num-steps", str(STEPS),
                  "--out-dir", out] + flags))
         finally:
-            score_net.fused_energy = fused_energy
+            score_net_mod.fused_energy = fused_energy
         if launches["fused_energy"] != energy_launches:
             raise AssertionError(f"{label}: {launches['fused_energy']} fused_energy "
                                  f"launches, expected {energy_launches}")
@@ -787,18 +959,16 @@ def route_phase(raw, device, steps=STEPS):
     flag, which the port keeps only for equality) must reproduce fast()'s
     edges and trajectory bit for bit; the bins route's torch geometry moves
     its trajectory, which is reported.  Returns the launches of each route."""
-    import dfmdock_tpu_torch.models.score_net as score_net
-
     batch = batch_to_tensors(complex_to_batch(raw), device)
     out, launches, edges = {}, {}, {}
-    select = score_net.select_edges
+    select = score_net_mod.select_edges
 
     def recording(*args, **kwargs):
         result = select(*args, **kwargs)
         edges[name].append(result)
         return result
 
-    score_net.select_edges = recording
+    score_net_mod.select_edges = recording
     try:
         for name, mcfg in (("fast", ModelConfig.fast()),
                            ("select", ModelConfig.fast(select_kernel=True)),
@@ -814,7 +984,7 @@ def route_phase(raw, device, steps=STEPS):
                 raise AssertionError(f"{name} route: non-finite trajectory")
             log(f"# {name} route P={P} steps={steps}: {P * steps / wall:.2f} steps/s")
     finally:
-        score_net.select_edges = select
+        score_net_mod.select_edges = select
     ref = out["fast"]["trajectory"]
     for name in ("select", "bins"):
         diff = (out[name]["trajectory"] - ref).abs().amax(dim=(0, 2, 3, 4))
@@ -842,6 +1012,292 @@ def route_phase(raw, device, steps=STEPS):
         if name == "select" and (first is not None or first_edges is not None):
             raise AssertionError("the select route's edges or trajectory differ from fast()'s")
     return launches
+
+
+def by_complex(rows):
+    """{complex id: [poses, 2] array of (DockQ, energy)} of CSV rows."""
+    groups = {}
+    for r in rows:
+        groups.setdefault(r["id"], []).append((float(r["DockQ"]), float(r["energy"])))
+    return {cid: np.array(v) for cid, v in groups.items()}
+
+
+def dockq_stats(groups):
+    """The sweep's quality numbers: mean DockQ over all poses, the mean of
+    each complex's best, the mean of each complex's minimum-energy pick,
+    and how many picks are acceptable or better (DockQ >= 0.23)."""
+    picks = [g[np.argmin(g[:, 1]), 0] for g in groups.values()]
+    return {"mean_all": float(np.concatenate([g[:, 0] for g in groups.values()]).mean()),
+            "best_mean": float(np.mean([g[:, 0].max() for g in groups.values()])),
+            "pick_mean": float(np.mean(picks)),
+            "acceptable": int(sum(p >= ACCEPTABLE for p in picks))}
+
+
+def bootstrap_margins(groups, seed=0):
+    """The margin of each gated number: the BOOT_Q quantile of the
+    difference between two independent bootstrap resamples of the record
+    (each complex's poses drawn with replacement, BOOT_DRAWS times), as a
+    positive distance."""
+    rng = np.random.default_rng(seed)
+
+    def resample():
+        total, count, picks = 0.0, 0, 0.0
+        for g in groups.values():
+            i = rng.integers(0, len(g), (BOOT_DRAWS, len(g)))
+            dq, e = g[i, 0], g[i, 1]
+            total, count = total + dq.sum(1), count + len(g)
+            picks = picks + np.take_along_axis(dq, e.argmin(1)[:, None], 1)[:, 0]
+        return {"mean_all": total / count, "pick_mean": picks / len(groups)}
+
+    a, b = resample(), resample()
+    return {k: float(-np.quantile(a[k] - b[k], BOOT_Q)) for k in a}
+
+
+def quality_gate(label, rows, record, ids, gate=True):
+    """The port's sweep rows beside the JAX record's rows of the same
+    complexes (a v5e run); with `gate`, the mean DockQ over all poses and
+    the min-energy-pick mean must each reach the record's less its
+    bootstrap margin."""
+    with open(record) as f:
+        rec = by_complex([r for r in csv.DictReader(f) if r["id"] in ids])
+    port = by_complex(rows)
+    if sorted(port) != sorted(rec):
+        raise AssertionError(f"{label}: complexes {sorted(port)}, record {sorted(rec)}")
+    s_p, s_r, margin = dockq_stats(port), dockq_stats(rec), bootstrap_margins(rec)
+    n = len(next(iter(port.values())))
+    log(f"# {label} ({len(port)} complexes x {n} poses) vs the JAX record {record} (v5e): "
+        f"mean DockQ over all poses {s_p['mean_all']:.4f} (record {s_r['mean_all']:.4f}, "
+        f"margin {margin['mean_all']:.4f}); best-of-{n} mean {s_p['best_mean']:.4f} (record "
+        f"{s_r['best_mean']:.4f}); min-energy pick mean {s_p['pick_mean']:.4f} (record "
+        f"{s_r['pick_mean']:.4f}, margin {margin['pick_mean']:.4f}); acceptable+ picks "
+        f"{s_p['acceptable']}/{len(port)} (record {s_r['acceptable']}/{len(rec)})")
+    for cid in sorted(port):
+        g, r = port[cid], rec[cid]
+        log(f"#   {cid}: mean {g[:, 0].mean():.3f} best {g[:, 0].max():.3f} pick "
+            f"{g[np.argmin(g[:, 1]), 0]:.3f} (record {r[:, 0].mean():.3f} / {r[:, 0].max():.3f} "
+            f"/ {r[np.argmin(r[:, 1]), 0]:.3f})")
+    if gate:
+        for k in ("mean_all", "pick_mean"):
+            if s_p[k] < s_r[k] - margin[k]:
+                raise AssertionError(f"{label}: {k} {s_p[k]:.4f} below the record's "
+                                     f"{s_r[k]:.4f} less its margin {margin[k]:.4f}")
+    return s_p
+
+
+def trained_phase(out_root):
+    """The trained mlsb weights (ckpts/db5_demo/weights.npz): the dock of
+    1AVX (P poses x STEPS steps), then the sweep over all 24 DB5 complexes
+    (16 poses, seed 5) gated against the JAX record eval_all.csv."""
+    out = os.path.join(out_root, "trained_dock")
+    rows, wall, _ = run_path("trained dock", DOCK_KERNELS, lambda: dock.main(
+        ["--npz", NPZ, "--ckpt", DEMO_NPZ, "--num-samples", str(P), "--num-steps", str(STEPS),
+         "--out-dir", out]))
+    e = np.array([r["energy"] for r in rows])
+    dq = np.array([r["DockQ"] for r in rows])
+    pick = int(np.argmin(e))
+    log(f"# trained dock 1AVX P={P} steps={STEPS}: wall {wall:.3f} s; min-energy pick pose "
+        f"{pick} energy {e[pick]:.4f} DockQ {dq[pick]:.3f}, best of {P} DockQ {dq.max():.3f}, "
+        f"mean {dq.mean():.3f} (the JAX demo's record on v5e, ckpts/db5_demo/README.md: best "
+        f"pose 5 energy -44.4894 DockQ 0.839)")
+    out_csv = os.path.join(out_root, "trained_sweep.csv")
+    rows, wall, launches = run_path("trained sweep", DOCK_KERNELS, lambda: sweep.main(
+        ["--ckpt", DEMO_NPZ, "--num-samples", str(P), "--seed", "5", "--out-csv", out_csv]))
+    log(f"# trained sweep: {len(rows)} rows, wall {wall:.3f} s")
+    quality_gate("trained mlsb sweep", rows, DEMO_RECORD, set(r["id"] for r in rows))
+    return launches
+
+
+def dfmdock_parity_phase(raw, device):
+    """The trained DFMDock-lineage weights, fast(): the kernel-path forward
+    (card) against the plain path (CPU) on phase 4's inputs (injected
+    edges, the native pose and a random one), t in {0.1, 0.5}; the forward
+    makes six agg-only fused_egcl calls and none of the coord or energy
+    kernels."""
+    batch, pos, edges, gumbel = parity_inputs(raw, device)
+    cfg = DFMDockConfig(model=ModelConfig.fast())
+    net_k = load_model(DFMDOCK_NPZ, cfg, device, lineage="dfmdock")
+    net_p = load_model(DFMDOCK_NPZ, cfg, torch.device("cpu"), lineage="dfmdock")
+    kw_k, kw_p = injected("edges", edges, gumbel)
+    for t in (0.1, 0.5):
+        calls = parity_check("dfmdock fast()", DFMDOCK_OUTPUTS, net_k, net_p, batch, pos, t,
+                             kw_k, kw_p)
+        made = [(name, len(out)) for name, _, _, out in calls]
+        if made != [("edge_table", 2)] + [("fused_egcl", 1)] * cfg.model.depth:
+            raise AssertionError(f"dfmdock forward made kernel calls {made}")
+
+
+def dfmdock_sweep_phase(out_root):
+    """The sweep --lineage dfmdock with its trained weights, 40 poses, seed 5:
+    over the four complexes it was trained on, gated against the JAX record
+    eval_train.csv, then the four it never saw beside eval_holdout.csv.
+    Each forward makes six agg-only fused_egcl launches (one edge table)
+    and no fused_egcl_coord or fused_energy launch."""
+    result = None
+    for label, ids, record, gate in (
+            ("train", DFMDOCK_TRAIN, "eval_train.csv", True),
+            ("held-out", DFMDOCK_HOLDOUT, "eval_holdout.csv", False)):
+        out_csv = os.path.join(out_root, f"dfmdock_{label}.csv")
+        rows, wall, launches = run_path(
+            f"dfmdock sweep {label}", DFMDOCK_KERNELS, lambda: sweep.main(
+                ["--lineage", "dfmdock", "--ckpt", DFMDOCK_NPZ, "--ids", ",".join(ids),
+                 "--num-samples", str(DFMDOCK_POSES), "--seed", "5", "--out-csv", out_csv]),
+            absent=DFMDOCK_ABSENT)
+        if launches["fused_egcl"] != 6 * launches["edge_table"]:
+            raise AssertionError(f"dfmdock sweep: {launches['fused_egcl']} fused_egcl for "
+                                 f"{launches['edge_table']} forwards")
+        log(f"# dfmdock sweep {label} ({', '.join(ids)}) P={DFMDOCK_POSES} steps={STEPS}: "
+            f"wall {wall:.3f} s, {launches['edge_table']} forwards")
+        quality_gate(f"dfmdock sweep {label}", rows,
+                     os.path.join("ckpts", "db5_holdout_dfmdock", record), set(ids), gate)
+        result = result or launches
+    return result
+
+
+def picard_phase(raw, device, out_root):
+    """Picard latency mode with the trained mlsb weights on 1AVX, one pose:
+    the dock CLI with --picard-iters 10 beside the sequential --ode dock
+    (walls); then Picard at K = T iterations against the sequential ODE from
+    the same generator seed (start pose and edge noise): K = T against
+    K = T + 1 (the fixed point: bit-equal), against the sequential ODE run at
+    Picard's launch shape (bit-equal), one Picard round on the 1-pose
+    sequential trajectory's states (PICARD_STEP_TOL), and the 1-pose
+    trajectory state by state up to the first forward whose edges or bins
+    differ (PICARD_STEP_TOL; with the same throughout, the final poses too)."""
+    walls = {}
+    for label, flags in (("picard-iters 10", ["--picard-iters", "10"]),
+                         ("sequential --ode", ["--ode"])):
+        out = os.path.join(out_root, label.replace(" ", "_"))
+        argv = ["--npz", NPZ, "--ckpt", DEMO_NPZ, "--num-samples", "1", "--num-steps",
+                str(STEPS), "--out-dir", out] + flags
+        dock.main(argv)  # warm-up: the first forwards at this shape
+        rows, walls[label], launches = run_path(f"dock {label}", DOCK_KERNELS,
+                                                lambda: dock.main(argv))
+        log(f"# dock 1AVX {label} P=1 steps={STEPS}: wall {walls[label]:.3f} s, "
+            f"{launches['edge_table']} forwards, DockQ {rows[0]['DockQ']:.3f}")
+    log(f"# Picard latency trade (P=1): {walls['picard-iters 10']:.3f} s with 10 iterations "
+        f"against {walls['sequential --ode']:.3f} s sequential")
+    cfg = DFMDockConfig(model=ModelConfig.fast(), sampler=SamplerConfig(num_steps=STEPS, ode=True))
+    net = load_model(DEMO_NPZ, cfg, device)
+    seq_sampler = build_sampler(net, cfg)
+    batch = batch_to_tensors(complex_to_batch(raw), device)
+    gen = lambda: torch.Generator(device).manual_seed(11)
+    picard = lambda k: PicardSampler(net, seq_sampler.r3, seq_sampler.so3, cfg.sampler,
+                                     num_iters=k)
+    # the edges and bins of every forward: the sequential run's T, then
+    # Picard's K = T rounds (the last round's T poses: its fixed point's)
+    edges, bins = [], []
+    select, table = score_net_mod.select_edges, egnn_mod.build_edge_table
+
+    def recording(record, fn):
+        def call(*args, **kwargs):
+            result = fn(*args, **kwargs)
+            record.append(result)
+            return result
+        return call
+
+    score_net_mod.select_edges = recording(edges, select)
+    egnn_mod.build_edge_table = recording(bins, table)
+    try:
+        seq = seq_sampler.sample(batch, 1, gen(), record_trajectory=True)
+        seq_edges, seq_bins = edges[:STEPS], [b[0] for b in bins[:STEPS]]
+        edges.clear()
+        bins.clear()
+        pic = picard(STEPS).sample(batch, 1, gen(), record_trajectory=True)
+        pic_edges, pic_bins = edges[STEPS - 1], bins[STEPS - 1][0]
+    finally:
+        score_net_mod.select_edges, egnn_mod.build_edge_table = select, table
+    if not torch.equal(pic["pos"], picard(STEPS + 1).sample(batch, 1, gen())["pos"]):
+        raise AssertionError("Picard: K = T and K = T + 1 iterations differ (no fixed point)")
+    # the start pose and each step's edge noise, drawn as both samplers draw them
+    g = gen()
+    pos0, _, _ = randomize_pose(g, batch["pos"], batch["lig_mask"], batch["node_mask"],
+                                cfg.sampler, 1)
+    n = pos0.shape[1]
+    gumbel = torch.cat([sample_gumbel((1, n, n), g, device) for _ in range(STEPS)])
+    ts, dt, _, _ = step_schedule(cfg.sampler)
+    t_all = torch.tensor(ts, device=device)
+    step = lambda x, drift, t: modify_coords(
+        x, batch["lig_mask"], seq_sampler.so3.reverse_step(drift["rot_score"], t, dt, ode=True),
+        seq_sampler.r3.reverse_step(drift["tr_score"], t, dt, ode=True),
+        cfg.sampler.center_mode)
+    batch["h0"] = net.embed_nodes(batch["x"])
+    with torch.no_grad():
+        # the sequential ODE with every forward at the Picard forward's launch
+        # shape (T poses, step s's pose in slot s): the same arithmetic, so
+        # Picard's fixed point must equal it bit for bit
+        slots, x = pos0.expand(STEPS, -1, -1, -1).clone(), pos0
+        for s, t in enumerate(ts):
+            slots[s] = x[0]
+            drift = net(batch, slots, t_all, gumbel=gumbel, scores_only=True)
+            x = step(x, {k: v[s : s + 1] for k, v in drift.items()}, t)
+        # the 1-pose sequential trajectory through one Picard round: every
+        # step's drift at the sequential state before it, in one T-pose
+        # forward, each state moved one step on its own
+        seq_states = torch.cat([pos0, seq["trajectory"][0, :-1]])
+        drift = net(batch, seq_states, t_all, gumbel=gumbel, scores_only=True)
+        step_diff = max(float((step(seq_states[s : s + 1], {k: v[s : s + 1] for k, v in
+                                                            drift.items()}, t)
+                               - seq["trajectory"][:, s]).abs().max())
+                        for s, t in enumerate(ts))
+    same_shape = float((pic["pos"] - x).abs().max())
+    # Picard's and the 1-pose run's trajectories step by step: the state
+    # before each step, and the discrete features its forward took from it
+    pic_states = torch.cat([pos0, pic["trajectory"][0, :-1]])
+    state_diff = (pic_states - seq_states).abs().amax(dim=(1, 2, 3)).tolist()
+    knn, first_flip = cfg.model.knn, None
+
+    def discrete_diff(s):
+        """What the two runs' forward s selected differently, or None: some
+        row's neighbour set, else, on the same sets, some edge's bins."""
+        (i_s, m_s), (i_p, m_p) = seq_edges[s], (pic_edges[0][s : s + 1],
+                                                pic_edges[1][s : s + 1])
+        key_s, key_p = torch.where(m_s > 0.5, i_s, n), torch.where(m_p > 0.5, i_p, n)
+        o_s, o_p = torch.argsort(key_s, -1), torch.argsort(key_p, -1)
+        rows = (key_s.gather(-1, o_s) != key_p.gather(-1, o_p)).any(-1)[0]
+        if rows.any():
+            in_knn = (torch.sort(key_s[..., :knn], -1)[0]
+                      != torch.sort(key_p[..., :knn], -1)[0]).any(-1)[0]
+            row = int(torch.nonzero(rows)[0])
+            # the kNN cut of that row in the sequential state: ranks knn, knn + 1
+            d = torch.sort(pairwise_ca_dist(seq_states[s : s + 1])[0, row]
+                           .masked_fill(~batch["node_mask"], float("inf")))[0]
+            return (f"{int(rows.sum())} rows with another neighbour set "
+                    f"({int(in_knn.sum())} in the kNN part); row {row}'s kNN cut "
+                    f"d{knn} {float(d[knn - 1]):.6f} A, d{knn + 1} {float(d[knn]):.6f} A")
+        order = lambda b, o: b.gather(2, o[..., None].expand(-1, -1, -1, b.shape[-1]))
+        bad = (order(seq_bins[s], o_s) != order(pic_bins[s : s + 1], o_p)) \
+            & (key_s.gather(-1, o_s) < n)[..., None]
+        if bad.any():
+            return (f"the same neighbour sets, {int(bad.any(-1).sum())} edges in another "
+                    f"bin (dist, omega, theta, phi, relpos: "
+                    f"{bad.sum((0, 1, 2)).tolist()})")
+        return None
+
+    for s in range(STEPS):
+        flip = discrete_diff(s)
+        if flip is not None:
+            first_flip = s
+            break
+    before = max(state_diff[: (STEPS if first_flip is None else first_flip + 1)])
+    delta = float((pic["pos"] - seq["pos"]).abs().max())
+    log(f"# Picard K=T={STEPS}: equal to K=T+1 bit for bit; against the sequential ODE at "
+        f"the same launch shape (T poses a forward) max |diff| {same_shape:.3e} A (must be "
+        f"0); one Picard round on the 1-pose sequential run's states moves each to the next "
+        f"within {step_diff:.3e} A (tolerance {PICARD_STEP_TOL} A)")
+    log(f"# Picard K=T vs the 1-pose sequential ODE (same start and edge noise): the states "
+        f"agree within {before:.3e} A up to "
+        + ("the end: every forward selected the same edges and bins" if first_flip is None
+           else f"the first forward whose edges or bins differ, step {first_flip + 1}: {flip}")
+        + f" (tolerance {PICARD_STEP_TOL} A); state diff by step "
+        + " ".join(f"{d:.1e}" for d in state_diff)
+        + f"; final pose max |diff| {delta:.3e} A")
+    if same_shape != 0.0 or step_diff > PICARD_STEP_TOL or before > PICARD_STEP_TOL:
+        raise AssertionError(f"Picard vs the sequential ODE: same shape {same_shape:.3e} A, "
+                             f"step {step_diff:.3e} A, before the edges or bins part "
+                             f"{before:.3e} A")
+    if first_flip is None and delta > PICARD_STEP_TOL:
+        raise AssertionError(f"Picard vs the sequential ODE: the same edges and bins, "
+                             f"final poses {delta:.3e} A apart")
 
 
 def select_topk_library(dist, y, node_mask, knn=20, sample_size=40):
@@ -962,6 +1418,9 @@ def main():
     t0 = time.perf_counter()
     parity_phase(raw, device)
     log(f"# ScoreNet parity: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dfmdock_parity_phase(raw, device)
+    log(f"# DFMDock-lineage parity: {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory() as out_root:
         launches, steps_s = dock_phase(out_root)
@@ -975,6 +1434,16 @@ def main():
         t0 = time.perf_counter()
         sweep_phase(out_root)
         log(f"# sweep: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        trained_phase(out_root)
+        log(f"# trained mlsb dock and sweep: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dfmdock_sweep_phase(out_root)
+        profile_phase(raw, device, lineage="dfmdock", ckpt=DFMDOCK_NPZ)
+        log(f"# DFMDock-lineage sweeps and profile: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        picard_phase(raw, device, out_root)
+        log(f"# Picard: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     route_launches = route_phase(raw, device)
     log(f"# kernel routes: {time.perf_counter() - t0:.1f} s")

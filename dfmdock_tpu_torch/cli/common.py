@@ -11,7 +11,7 @@ from dfmdock_tpu_torch.config import DFMDockConfig
 from dfmdock_tpu_torch.data.dataset import batch_to_tensors, complex_to_batch
 from dfmdock_tpu_torch.diffusion import R3Diffuser, SO3Diffuser
 from dfmdock_tpu_torch.eval import compute_metrics
-from dfmdock_tpu_torch.models import ScoreNet
+from dfmdock_tpu_torch.models import DFMDockModel, ScoreNet
 from dfmdock_tpu_torch.params import load_npz
 from dfmdock_tpu_torch.sampler import EMSampler
 
@@ -28,10 +28,15 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def load_model(ckpt: str | None, cfg: DFMDockConfig, device, seed: int = 0) -> ScoreNet:
-    """ScoreNet with seeded random weights, or the weights of a flat-dict
-    .npz (params.py) when `ckpt` is given."""
-    net = ScoreNet(cfg.model).init_weights(torch.Generator().manual_seed(seed))
+LINEAGES = {"mlsb": ScoreNet, "dfmdock": DFMDockModel}
+
+
+def load_model(ckpt: str | None, cfg: DFMDockConfig, device, seed: int = 0,
+               lineage: str = "mlsb"):
+    """The score model of a lineage (mlsb: ScoreNet; dfmdock: DFMDockModel)
+    with seeded random weights, or the weights of a flat-dict .npz
+    (params.py) when `ckpt` is given; every key must match."""
+    net = LINEAGES[lineage](cfg.model).init_weights(torch.Generator().manual_seed(seed))
     if ckpt is not None:
         net.load_state_dict(load_npz(ckpt))
     return net.to(device).eval()

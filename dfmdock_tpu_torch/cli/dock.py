@@ -1,13 +1,16 @@
 """Dock one preprocessed complex: the port of `python -m dfmdock_tpu.cli.dock --npz`.
 
 All poses run batched through the reverse SDE; the best pose is written as
-a PDB and every pose's metrics as a CSV row.  Poses are ranked by their
+a PDB and every pose's metrics as a CSV row.  With --picard-iters the
+probability-flow ODE is solved by Picard iteration (sampler/picard.py).  Poses are ranked by their
 final energy, or (--rank-by) by the mean over --energy-draws edge-sampling
 draws of energy, icons or snorm, or by the learned linear re-ranker over a
 grid of those scores (ckpts/db5_cv/reranker.md).
 
   python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz --num-samples 16
   python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz --rank-by reranker
+  python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz \
+      --ckpt ckpts/db5_demo/weights.npz --num-samples 1 --picard-iters 10
 
 By default the EGCL stack runs through the CUDA kernels on `cuda`;
 `--exact` selects the eager float32 path and `--device cpu` the CPU.
@@ -32,7 +35,7 @@ from dfmdock_tpu_torch.cli.sweep import _multi_draw_scores
 from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
 from dfmdock_tpu_torch.data.convert import load_npz_complex
 from dfmdock_tpu_torch.data.pdb_io import get_full_coords, save_pdb
-from dfmdock_tpu_torch.sampler import EMSampler
+from dfmdock_tpu_torch.sampler import EMSampler, PicardSampler
 
 DEFAULT_RERANKER = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -89,6 +92,11 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--ode", action="store_true")
     ap.add_argument("--integrator", choices=["em", "heun"], default="em",
                     help="heun: 2nd-order probability-flow ODE (implies --ode)")
+    ap.add_argument("--picard-iters", type=int, default=0,
+                    help="latency mode: solve the probability-flow ODE by K "
+                         "parallel-in-time Picard iterations, each one forward "
+                         "over all num-steps x num-samples poses, instead of "
+                         "num-steps sequential forwards (implies --ode)")
     ap.add_argument("--energy-draws", type=int, default=1,
                     help="> 1: rank by the mean energy over K independent "
                          "edge-sampling draws")
@@ -111,6 +119,16 @@ def main(argv=None) -> list[dict]:
                     help="eager float32 path (default: the CUDA kernels)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.picard_iters > 0:
+        if args.integrator != "em":
+            ap.error("--picard-iters is its own scheme; drop --integrator")
+        # each pose holds num-steps states and every iteration runs num-steps
+        # x num-samples poses through one forward: a latency mode for P ~ 1
+        if args.num_samples > 4:
+            ap.error(f"--picard-iters is a single-pose latency mode; --num-samples "
+                     f"{args.num_samples} > 4 would batch {args.num_samples} full "
+                     f"[T, N, 3, 3] Picard states. Use the default sampler for "
+                     f"throughput.")
 
     device = resolve_device(args.device)
     cfg = DFMDockConfig(
@@ -121,12 +139,15 @@ def main(argv=None) -> list[dict]:
             rot_noise_scale=args.rot_noise_scale,
             use_clash_force=args.use_clash_force,
             noise_annealing=args.noise_annealing,
-            ode=args.ode or args.integrator == "heun",
+            ode=args.ode or args.integrator == "heun" or args.picard_iters > 0,
             integrator=args.integrator,
         ),
     )
     net = load_model(args.ckpt, cfg, device)
     sampler = build_sampler(net, cfg)
+    if args.picard_iters > 0:
+        sampler = PicardSampler(net, sampler.r3, sampler.so3, cfg.sampler,
+                                num_iters=args.picard_iters)
     os.makedirs(args.out_dir, exist_ok=True)
 
     job = load_npz_complex(args.npz)

@@ -7,10 +7,13 @@ The sweep is re-entrant: complexes already in the CSV are skipped with
 --resume.
 
   python -m dfmdock_tpu_torch.cli.sweep --ids 1AVX,7CEI --num-samples 16
+  python -m dfmdock_tpu_torch.cli.sweep --lineage dfmdock \
+      --ckpt ckpts/db5_holdout_dfmdock/weights.npz --num-samples 40 --seed 5
 
-By default the forward runs through the CUDA kernels on `cuda`; `--exact`
-selects the eager float32 path and `--device cpu` the CPU.  The JAX sweep's
-`--lineage dfmdock` and `--dp` are not ported: the parser refuses them.
+--lineage picks the score network: mlsb (ScoreNet) or dfmdock (the DFMDock
+lineage, DFMDockModel).  By default the forward runs through the CUDA
+kernels on `cuda`; `--exact` selects the eager float32 path and `--device
+cpu` the CPU.  The JAX sweep's `--dp` is not ported: the parser refuses it.
 """
 from __future__ import annotations
 
@@ -69,11 +72,19 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--bucket", type=int, default=128,
                     help="pad N up to multiples of this")
+    ap.add_argument("--lineage", choices=["mlsb", "dfmdock"], default="mlsb")
     ap.add_argument("--exact", action="store_true",
                     help="eager float32 path (default: the CUDA kernels)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.lineage == "dfmdock" and args.energy_draws > 1:
+        # the JAX sweep's ranking draws read out["ires"], which the DFMDock
+        # lineage does not return (it returns "ires_logits"): that
+        # combination cannot run in the reference, so the port refuses it
+        ap.error("--energy-draws > 1 is not available with --lineage dfmdock: the "
+                 "reference's ranking draws read the interface logits under the mlsb "
+                 "name ('ires'), which the DFMDock lineage does not return")
 
     device = resolve_device(args.device)
     cfg = DFMDockConfig(
@@ -87,7 +98,7 @@ def main(argv=None) -> list[dict]:
             integrator=args.integrator,
         ),
     )
-    net = load_model(args.ckpt, cfg, device)
+    net = load_model(args.ckpt, cfg, device, lineage=args.lineage)
     sampler = build_sampler(net, cfg)
     ds = NPZDataset(args.data_dir)
     # --ids filters the whole dataset; --limit truncates afterwards

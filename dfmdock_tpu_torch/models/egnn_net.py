@@ -1,0 +1,191 @@
+"""EGNNNet: the DFMDock-lineage score network, predict path, batched over poses.
+
+Mirrors `dfmdock_tpu/models/egnn_net.py` (`EGNNNet.apply(predict=True)`) on
+the port's pose batches: poses ride a leading [P] dimension and share one
+padded complex, as in `score_net.ScoreNet`.  Against the mlsb ScoreNet:
+
+- the EGNN never moves coordinates: all `depth` layers are agg-only (no
+  `coord_mlp`), so the kernel path runs only ops/fused_egcl's agg kernel;
+- the force comes from a per-pair scalar head over receptor x ligand pairs,
+  f_j = sum_i unit(ca_i - ca_j) * MLP([h_i, h_j, D_ij]) over receptor rows
+  i, divided by the receptor count with agg="mean";
+- pair heads for the energy (masked to D < cut_off) and the confidence
+  logit, the node-level interface head `to_ires`; `to_dist` (the distogram)
+  is carried for its weights, its loss waits for training.
+
+The pair heads run over one row-chunked scan, each head's first Linear
+pre-split into h_i W[:C] + h_j W[C:2C] + D W[2C], so [P, R, L, C] never
+materializes.  The scan covers receptor rows x ligand columns only: every
+other pair of the JAX scan over all N x N is masked to exactly 0, so the
+sums are the same up to their order (the JAX scan adds 64-row chunks of
+all N rows; here 64-row chunks of the receptor rows).  D and the cutoff
+masks are the CA distances of the (detached) input pose.
+
+The net does not centre its input; `dfmdock.DFMDockModel` does.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dfmdock_tpu_torch.config import ModelConfig
+from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
+from dfmdock_tpu_torch.features.sixd import SPATIAL_DIM, pairwise_ca_dist
+from dfmdock_tpu_torch.models.edges import select_edges
+from dfmdock_tpu_torch.models.egnn import EGCL, edge_stack
+from dfmdock_tpu_torch.models.modules import LN_EPS, TimeEmbed, init_weights, time_tensor
+from dfmdock_tpu_torch.models.score_net import ScaleMLP
+
+ROW_CHUNK = 64
+NUM_DIST_BINS = 64  # distogram head
+
+
+class PairHead(nn.Module):
+    """MLP over the interaction [h_i, h_j, D_ij] (2C + 1 inputs)."""
+
+    def __init__(self, node_dim: int, out_dim: int):
+        super().__init__()
+        self.l0 = nn.Linear(2 * node_dim + 1, node_dim, bias=False)
+        self.ln = nn.LayerNorm(node_dim, eps=LN_EPS)
+        self.l1 = nn.Linear(node_dim, out_dim, bias=False)
+
+    def split(self, h_i: torch.Tensor, h_j: torch.Tensor):
+        """The first Linear's h_i and h_j parts: (h_i W[:C], h_j W[C:2C])."""
+        c = h_i.shape[-1]
+        w = self.l0.weight  # [C, 2C + 1]
+        return h_i @ w[:, :c].t(), h_j @ w[:, c : 2 * c].t()
+
+    def forward(self, pre: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+        """pre [..., C] = the split parts summed, d [...] the distance."""
+        y = pre + d[..., None] * self.l0.weight[:, -1]
+        return self.l1(F.silu(self.ln(y)))
+
+
+class EGNNNet(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = c = cfg
+        self.single_embed = nn.Linear(c.lm_embed_dim, c.node_dim, bias=False)
+        self.spatial_embed = nn.Linear(SPATIAL_DIM, c.edge_dim, bias=False)
+        self.positional_embed = nn.Linear(NUM_RELPOS_CLASSES, c.edge_dim, bias=False)
+        self.egnn = nn.ModuleList(
+            EGCL(c.node_dim, c.edge_dim, update_coords=False) for _ in range(c.depth))
+        self.to_energy = PairHead(c.node_dim, 1)
+        self.to_force = PairHead(c.node_dim, 1)
+        self.to_dist = PairHead(c.node_dim, NUM_DIST_BINS)
+        self.to_confidence = PairHead(c.node_dim, 1)
+        self.to_ires = nn.ModuleDict({
+            "l0": nn.Linear(c.node_dim, 2 * c.node_dim),
+            "l1": nn.Linear(2 * c.node_dim, 2 * c.node_dim),
+            "l2": nn.Linear(2 * c.node_dim, 1),
+        })
+        self.t_embed = TimeEmbed(c.inner_dim)
+        self.tr_scale = ScaleMLP(c.inner_dim)
+        self.rot_scale = ScaleMLP(c.inner_dim)
+
+    def init_weights(self, generator: torch.Generator):
+        init_weights(self, generator)
+        return self
+
+    def embed_nodes(self, x: torch.Tensor) -> torch.Tensor:
+        """h0 = single_embed(x); the sampler hoists it (batch['h0'])."""
+        return self.single_embed(x)
+
+    def forward(self, batch: dict, pos: torch.Tensor, t, *, generator=None,
+                gumbel=None, edges=None, scores_only: bool = False) -> dict:
+        """Predict-path forward, the contract of `ScoreNet.forward`.
+
+        pos [P, N, 3, 3]; t a float, or a [P] tensor with one t per pose;
+        edges from `generator`, injected Gumbel noise `gumbel` [P, N, N] or
+        the neighbour set `edges` = (idx, edge_mask) [P, N, K].
+
+        Returns tr_score / rot_score [P, 1, 3] and f [P, N, 3]; unless
+        `scores_only` (then only the force head runs), also energy [P],
+        ires_logits [P, N, 1], confidence_logits [P], num_clashes [P]."""
+        c = self.cfg
+        node_mask, lig_mask = batch["node_mask"], batch["lig_mask"]
+        valid = node_mask.to(torch.float32)
+        lig_valid = lig_mask * valid
+        rec_valid = (1.0 - lig_mask) * valid
+        p, n = pos.shape[:2]
+
+        h0 = batch["h0"] if "h0" in batch else self.embed_nodes(batch["x"])
+        h = h0.expand(p, n, h0.shape[-1])
+        ca = pos[..., 1, :]
+        dist = pairwise_ca_dist(pos)
+        if edges is None:
+            edges = select_edges(dist, node_mask, c.knn, c.sample_size,
+                                 generator=generator, gumbel=gumbel)
+        idx, edge_mask = edges
+        h, _ = edge_stack(
+            c, self.egnn, self.spatial_embed.weight.t(), self.positional_embed.weight.t(),
+            batch, pos, h, idx, edge_mask, lig_valid)
+
+        heads = self._pair_heads(h, ca, dist, rec_valid > 0, lig_valid > 0, scores_only)
+        if c.agg == "mean":
+            f = heads["f"] / rec_valid.sum().clamp(min=1.0)
+            n_lig = lig_valid.sum().clamp(min=1.0)
+        else:
+            f, n_lig = heads["f"], 1.0
+        tr_pred = f.sum(-2, keepdim=True) / n_lig
+        rot_pred = torch.linalg.cross(ca * lig_valid[:, None], f, dim=-1).sum(
+            -2, keepdim=True) / n_lig
+        t_emb = self.t_embed(time_tensor(t, pos.device))
+        out = {
+            "tr_score": self.tr_scale(tr_pred, t_emb),
+            "rot_score": self.rot_scale(rot_pred, t_emb),
+            "f": f,
+        }
+        if scores_only:
+            return out
+        e_num, e_den = heads["energy"]
+        out["energy"] = e_num / e_den.clamp(min=1.0) if c.agg == "mean" else e_num
+        c_num, c_den = heads["confidence"]
+        out["confidence_logits"] = c_num / max(c_den, 1.0)
+        out["ires_logits"] = self._ires(h)
+        out["num_clashes"] = heads["num_clashes"]
+        return out
+
+    def _pair_heads(self, h, ca, dist, rec, lig, scores_only):
+        """The pair heads over receptor rows x ligand columns, in chunks of
+        ROW_CHUNK receptor rows.  Returns f [P, N, 3] (the force summed over
+        receptor rows, on ligand rows; 0 elsewhere) and, unless
+        `scores_only`, the energy's masked sum and count [P], the
+        confidence's sum [P] and count, and num_clashes [P]."""
+        rec_idx = torch.nonzero(rec).squeeze(-1)
+        lig_idx = torch.nonzero(lig).squeeze(-1)
+        p, n = h.shape[:2]
+        h_l, ca_l = h[:, lig_idx], ca[:, lig_idx]
+        d_rl = dist[:, rec_idx][:, :, lig_idx]  # [P, R, L]
+        heads = [self.to_force] + ([] if scores_only else [self.to_energy, self.to_confidence])
+        parts = [head.split(h[:, rec_idx], h_l) for head in heads]
+        f_acc = h.new_zeros(p, lig_idx.numel(), 3)
+        e_num = h.new_zeros(p)
+        e_den = h.new_zeros(p)
+        c_num = h.new_zeros(p)
+        for i0 in range(0, rec_idx.numel(), ROW_CHUNK):
+            rows = slice(i0, i0 + ROW_CHUNK)
+            d_c = d_rl[:, rows]  # [P, chunk, L]
+            pre = lambda k: parts[k][0][:, rows, None, :] + parts[k][1][:, None, :, :]
+            fs = self.to_force(pre(0), d_c)  # [P, chunk, L, 1]
+            vec = ca[:, rec_idx[rows], None, :] - ca_l[:, None, :, :]  # rec_i - lig_j
+            unit = vec / torch.sqrt((vec * vec).sum(-1, keepdim=True).clamp(min=1e-12))
+            f_acc = f_acc + (unit * fs).sum(1)
+            if not scores_only:
+                em = (d_c < self.cfg.cut_off).to(h.dtype)
+                e_num = e_num + (self.to_energy(pre(1), d_c)[..., 0] * em).sum((-2, -1))
+                e_den = e_den + em.sum((-2, -1))
+                c_num = c_num + self.to_confidence(pre(2), d_c)[..., 0].sum((-2, -1))
+        f = h.new_zeros(p, n, 3)
+        f[:, lig_idx] = f_acc
+        out = {"f": f}
+        if not scores_only:
+            out["energy"] = (e_num, e_den)
+            out["confidence"] = (c_num, float(rec_idx.numel() * lig_idx.numel()))
+            out["num_clashes"] = (d_rl <= 3.0).sum((-2, -1)).to(torch.int32)
+        return out
+
+    def _ires(self, h: torch.Tensor) -> torch.Tensor:
+        p = self.to_ires
+        return p["l2"](F.silu(p["l1"](F.silu(p["l0"](h)))))

@@ -52,7 +52,14 @@ class TimeEmbed(nn.Module):
         self.l0 = nn.Linear(inner_dim, inner_dim, bias=False)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return torch.sigmoid(self.l0(gaussian_fourier(self.W, t.reshape(1))))
+        """t [] or [T] -> [T, inner_dim] (T = 1 for a scalar t)."""
+        return torch.sigmoid(self.l0(gaussian_fourier(self.W, t.reshape(-1))))
+
+
+def time_tensor(t, device) -> torch.Tensor:
+    """A forward's t as a float32 tensor on `device`: a python float, or a
+    [P] tensor with one t per pose."""
+    return torch.as_tensor(t, dtype=torch.float32, device=device)
 
 
 @torch.no_grad()

@@ -25,22 +25,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfmdock_tpu_torch.config import ModelConfig
-from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES, relpos_bin_at
-from dfmdock_tpu_torch.features.sixd import (
-    SPATIAL_DIM,
-    pairwise_ca_dist,
-    sixd_bins_at,
-    spatial_embed_from_bins,
-)
+from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
+from dfmdock_tpu_torch.features.sixd import SPATIAL_DIM, pairwise_ca_dist
 from dfmdock_tpu_torch.models.edges import select_edges
-from dfmdock_tpu_torch.models.egnn import (
-    EGCL,
-    build_edge_table_unfused,
-    egnn_apply,
-    egnn_apply_fused,
-)
-from dfmdock_tpu_torch.models.modules import LN_EPS, TimeEmbed, init_weights
-from dfmdock_tpu_torch.ops.edge_table import build_edge_table
+from dfmdock_tpu_torch.models.egnn import EGCL, edge_stack
+from dfmdock_tpu_torch.models.modules import LN_EPS, TimeEmbed, init_weights, time_tensor
 from dfmdock_tpu_torch.ops.energy_head import fused_energy, fused_energy_plain
 
 
@@ -54,9 +43,9 @@ class ScaleMLP(nn.Module):
         self.l1 = nn.Linear(inner_dim, 1, bias=False)
 
     def forward(self, vec: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
-        """vec [P, 1, 3], t_emb [1, inner] -> [P, 1, 3]."""
+        """vec [P, 1, 3], t_emb [1 or P, inner] -> [P, 1, 3]."""
         norm = torch.sqrt((vec * vec).sum(-1, keepdim=True) + 1e-24)
-        inp = torch.cat([norm, t_emb.expand(vec.shape[0], 1, -1)], -1)
+        inp = torch.cat([norm, t_emb[:, None, :].expand(vec.shape[0], 1, -1)], -1)
         y = self.l1(F.silu(self.ln(self.l0(inp))))
         return vec / (norm + 1e-6) * F.softplus(y)
 
@@ -100,7 +89,8 @@ class ScoreNet(nn.Module):
                 gumbel=None, edges=None, scores_only: bool = False) -> dict:
         """Predict-path forward.
 
-        pos [P, N, 3, 3]; t a float in [0, 1].  Edge sampling draws its
+        pos [P, N, 3, 3]; t a float in [0, 1], or a [P] tensor with one t
+        per pose.  Edge sampling draws its
         Gumbel noise from `generator`, or takes `gumbel` [P, N, N], or the
         whole neighbour set `edges` = (idx, edge_mask) [P, N, K].
 
@@ -126,30 +116,15 @@ class ScoreNet(nn.Module):
             edges = select_edges(dist, node_mask, c.knn, c.sample_size,
                                  generator=generator, gumbel=gumbel)
         idx, edge_mask = edges
-        spatial_w = self.spatial_embed.weight.t()
-        positional_w = self.positional_embed.weight.t()
-
-        if c.use_pallas:
-            build = build_edge_table if c.edge_table_kernel else build_edge_table_unfused
-            ebin, egeo = build(idx, pos.contiguous(), batch["res_id"], batch["asym_id"],
-                               normalize=c.normalize)
-            h, coord_out = egnn_apply_fused(
-                self.egnn, spatial_w, positional_w, h, ca, idx, edge_mask, ebin,
-                egeo, node_mask, lig_valid,
-            )
-        else:
-            rp = relpos_bin_at(batch["res_id"], batch["asym_id"], idx)
-            db, ob, tb, pb = sixd_bins_at(pos, idx)
-            edge_attr = (spatial_embed_from_bins(spatial_w, db, ob, tb, pb)
-                         + positional_w[rp.long()])
-            h, coord_out = egnn_apply(self.egnn, h, ca, idx, edge_mask, edge_attr,
-                                      node_mask, lig_valid, normalize=c.normalize)
+        h, coord_out = edge_stack(
+            c, self.egnn, self.spatial_embed.weight.t(), self.positional_embed.weight.t(),
+            batch, pos, h, idx, edge_mask, lig_valid)
 
         # force from the coordinate update of ligand CAs -> tr/rot scores
         f = (coord_out - ca) * lig_valid[:, None]
         tr_pred = f.sum(-2, keepdim=True) / n_lig
         rot_pred = torch.linalg.cross(ca, f, dim=-1).sum(-2, keepdim=True) / n_lig
-        t_emb = self.t_embed(torch.full((), float(t), device=pos.device))
+        t_emb = self.t_embed(time_tensor(t, pos.device))
         out = {
             "tr_score": self.tr_scale(tr_pred, t_emb),
             "rot_score": self.rot_scale(rot_pred, t_emb),

@@ -1,13 +1,16 @@
 """Parameter bridge between the JAX package's pytree and the port's state_dict.
 
-The JAX ScoreNet keeps its parameters as nested dicts and lists, flattened
-here to "/"-joined paths ("egnn/3/edge_mlp/l0/w").  Linear weights there are
+The JAX score networks (ScoreNet, and EGNNNet of the DFMDock lineage) keep
+their parameters as nested dicts and lists, flattened here to "/"-joined
+paths ("egnn/3/edge_mlp/l0/w", "to_force/l0/w").  Linear weights there are
 w: [in, out]; here they are nn.Linear weights [out, in].  Names map as
   .../w -> ....weight (transposed)    .../b -> ....bias
   .../g -> ....weight (norm scale)    anything else keeps its name
 (`mean_scale` of GraphNorm, the Fourier buffer `W`).
 
-A flat dict saved with `numpy.savez` is what the dock CLI's `--ckpt` reads.
+A flat dict saved with `numpy.savez` is what the CLIs' `--ckpt` reads;
+`scripts/export_torch_weights.py` writes one from a JAX orbax checkpoint
+(`ckpts/db5_demo/weights.npz`, `ckpts/db5_holdout_dfmdock/weights.npz`).
 """
 from __future__ import annotations
 

@@ -87,6 +87,17 @@ def clash_force(pos, lig_mask, node_mask):
     return (grad * lig_w[:, None]).sum(-2) / lig_w.sum().clamp(min=1.0)
 
 
+def step_schedule(cfg: SamplerConfig):
+    """The sampler's (ts, dt, tr_noise_scales, rot_noise_scales), python floats."""
+    ts = torch.linspace(1.0, cfg.eps, cfg.num_steps, dtype=torch.float32).tolist()
+    dt = ts[0] - ts[1] if len(ts) > 1 else 0.0  # one step: JAX's clamped index
+    if cfg.noise_annealing:
+        return ts, dt, list(ts), list(ts)
+    tr_ns = [cfg.tr_noise_scale] * (cfg.num_steps - 1) + [0.0]
+    rot_ns = [cfg.rot_noise_scale] * (cfg.num_steps - 1) + [0.0]
+    return ts, dt, tr_ns, rot_ns
+
+
 class EMSampler:
     """Reverse-SDE docking sampler over a ScoreNet."""
 
@@ -99,17 +110,6 @@ class EMSampler:
         self.r3 = r3
         self.so3 = so3
         self.cfg = cfg
-
-    def schedule(self):
-        """(ts, dt, tr_noise_scales, rot_noise_scales), python floats."""
-        cfg = self.cfg
-        ts = torch.linspace(1.0, cfg.eps, cfg.num_steps, dtype=torch.float32).tolist()
-        dt = ts[0] - ts[1] if len(ts) > 1 else 0.0  # one step: JAX's clamped index
-        if cfg.noise_annealing:
-            return ts, dt, list(ts), list(ts)
-        tr_ns = [cfg.tr_noise_scale] * (cfg.num_steps - 1) + [0.0]
-        rot_ns = [cfg.rot_noise_scale] * (cfg.num_steps - 1) + [0.0]
-        return ts, dt, tr_ns, rot_ns
 
     @torch.no_grad()
     def sample(self, batch: dict, num_samples: int, generator: torch.Generator,
@@ -125,7 +125,7 @@ class EMSampler:
         rot_score [P, 1, 3], energy [P], num_clashes [P] (+ trajectory
         [P, num_steps, N, 3, 3], the pose after every step)."""
         cfg = self.cfg
-        ts, dt, tr_ns, rot_ns = self.schedule()
+        ts, dt, tr_ns, rot_ns = step_schedule(cfg)
         batch = dict(batch)
         if "h0" not in batch:
             batch["h0"] = self.net.embed_nodes(batch["x"])

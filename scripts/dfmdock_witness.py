@@ -1,0 +1,210 @@
+"""A second witness for the DFMDock lineage's docking quality, on the CPU.
+
+    python3 scripts/dfmdock_witness.py [--ids 4POU] [--seeds 5,6,7,8]
+        [--num-samples 40] [--num-steps 40] [--sides jax-bf16,jax-f32,port]
+
+The DFMDock lineage's trained weights (ckpts/db5_holdout_dfmdock) are swept
+on the complexes they were trained on by three samplers, each with the
+protocol of the JAX record eval_train.csv (40-step EM, min-energy ranking,
+the 128-residue bucket):
+- `jax-bf16`: the JAX package's sweep with the model settings the record was
+  made with (compute_dtype bfloat16, no Pallas: the DFMDock lineage had no
+  kernel path then), from the orbax step.  Each complex gets the key the
+  record's sweep gave it (PRNGKey(seed) split once per complex, in the
+  record's order), so seed 5 repeats the record's draws;
+- `jax-f32`: the same in float32 (the JAX sweep's --exact);
+- `port`: dfmdock_tpu_torch's sweep, --exact on the CPU, from weights.npz;
+- `port-cuda`: the same sweep through the kernels on a CUDA card (the only
+  side that needs one; without JAX installed, run this side alone).
+Prints one line per run and side: each complex's mean DockQ over all poses,
+its best and its min-energy pick, then the means of each side over all runs
+beside the record (eval_train.csv, made on a TPU v5e).  `--summarize DIR`
+reads the per-pose CSVs of earlier runs (`--out-dir DIR`) and prints each
+side and seed over all the complexes it covers.  Imports JAX; it is
+not part of the port.  A 40-pose sweep of 4POU takes minutes per side.
+"""
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import re
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+CKPT = os.path.join(ROOT, "ckpts", "db5_holdout_dfmdock")
+RECORD = os.path.join(CKPT, "eval_train.csv")
+DATA = os.path.join(ROOT, "data", "db5_npz")
+RECORD_ORDER = ("1AVX", "1ZHI", "2SNI", "4POU")  # the record sweep's ids, in order
+BUCKET = 128
+
+
+def record_groups():
+    with open(RECORD) as f:
+        return groups_of(csv.DictReader(f))
+
+
+def groups_of(rows):
+    """{complex id: [poses, 2] array of (DockQ, energy)}."""
+    out = {}
+    for r in rows:
+        out.setdefault(r["id"], []).append((float(r["DockQ"]), float(r["energy"])))
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def jax_side(ids, seed, num_samples, num_steps, dtype):
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from dfmdock_tpu.cli.common import build_sampler, dock_complex, load_model, make_runner
+    from dfmdock_tpu.config import DFMDockConfig, ModelConfig, SamplerConfig
+    from dfmdock_tpu.data.batching import round_up
+    from dfmdock_tpu.data.dataset import NPZDataset
+
+    cfg = DFMDockConfig(model=ModelConfig(compute_dtype=dtype),
+                        sampler=SamplerConfig(num_steps=num_steps))
+    net, params = load_model(os.path.join(CKPT, "last"), cfg, lineage="dfmdock")
+    sampler = build_sampler(net, cfg)
+    run_fn = make_runner(sampler, num_samples)
+    ds = NPZDataset(DATA)
+    key, rows = jax.random.PRNGKey(seed), []
+    for cid in RECORD_ORDER:
+        key, sub = jax.random.split(key)
+        if cid not in ids:
+            continue
+        raw = ds.load_raw(ds.ids.index(cid))
+        n = raw["rec_x"].shape[0] + raw["lig_x"].shape[0]
+        recs, _, _ = dock_complex(sampler, params, raw, sub, num_samples,
+                                  native=(raw["rec_pos"], raw["lig_pos"]),
+                                  pad_to=round_up(n, BUCKET), run_fn=run_fn)
+        rows += [dict(r, id=cid) for r in recs]
+    return groups_of(rows)
+
+
+def port_side(ids, seed, num_samples, num_steps, cuda):
+    from dfmdock_tpu_torch.cli import sweep
+
+    route = ["--device", "cuda"] if cuda else ["--device", "cpu", "--exact"]
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = sweep.main(["--lineage", "dfmdock", "--ckpt", os.path.join(CKPT, "weights.npz"),
+                           "--data-dir", DATA, "--ids", ",".join(ids), "--num-samples",
+                           str(num_samples), "--num-steps", str(num_steps), "--seed",
+                           str(seed), "--out-csv", os.path.join(tmp, "sweep.csv")] + route)
+    return groups_of(rows)
+
+
+def stats(g):
+    """(mean DockQ, best, min-energy pick) of one complex's poses."""
+    return g[:, 0].mean(), g[:, 0].max(), g[np.argmin(g[:, 1]), 0]
+
+
+def fmt(groups):
+    return "; ".join("{} mean {:.4f} best {:.4f} pick {:.4f}".format(k, *stats(g))
+                     for k, g in sorted(groups.items()))
+
+
+def overall(groups):
+    """The sweep's numbers over several complexes: mean DockQ over all
+    poses, best-of mean, min-energy-pick mean, acceptable+ picks (>= 0.23)."""
+    st = [stats(g) for g in groups.values()]
+    return (np.concatenate([g[:, 0] for g in groups.values()]).mean(),
+            np.mean([x[1] for x in st]), np.mean([x[2] for x in st]),
+            sum(x[2] >= 0.23 for x in st))
+
+
+def rank_corr(g):
+    """Spearman correlation of one complex's poses' DockQ and energy
+    (negative where lower energy marks better poses)."""
+    r = np.argsort(np.argsort(g, 0), 0).astype(np.float64)
+    return np.corrcoef(r[:, 0], r[:, 1])[0, 1]
+
+
+def summarize(out_dir):
+    runs = {}
+    for name in sorted(os.listdir(out_dir)):
+        side, seed = re.fullmatch(r"(.+)_seed(\d+)_[\w-]+\.csv", name).groups()
+        with open(os.path.join(out_dir, name)) as f:
+            runs.setdefault(side, {}).setdefault(int(seed), {}).update(
+                groups_of(csv.DictReader(f)))
+    line = "mean {:.4f}, best mean {:.4f}, pick mean {:.4f}, acceptable+ picks {}"
+    for side, by_seed in sorted(runs.items()):
+        for ids in sorted({tuple(sorted(g)) for g in by_seed.values()}):
+            record = {k: g for k, g in record_groups().items() if k in ids}
+            print(f"# {','.join(ids)}: JAX record (v5e) " + line.format(*overall(record)))
+            seeds = [sd for sd, g in sorted(by_seed.items()) if tuple(sorted(g)) == ids]
+            for sd in seeds:
+                print(f"# {','.join(ids)}: {side}, seed {sd}: "
+                      + line.format(*overall(by_seed[sd])))
+            means = np.array([overall(by_seed[sd])[:3] for sd in seeds])
+            corr = "; ".join(f"{k} {np.mean([rank_corr(by_seed[sd][k]) for sd in seeds]):.3f}"
+                             f" (record {rank_corr(record[k]):.3f})" for k in ids)
+            print(f"# {','.join(ids)}: {side} over seeds {seeds}: mean {means[:, 0].mean():.4f} "
+                  f"(seed to seed sd {means[:, 0].std(ddof=1) if len(seeds) > 1 else 0:.4f}), "
+                  f"pick mean {means[:, 2].mean():.4f} (sd "
+                  f"{means[:, 2].std(ddof=1) if len(seeds) > 1 else 0:.4f}); energy-DockQ "
+                  f"rank correlation by complex, mean over seeds: {corr}")
+    return 0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--ids", default="4POU")
+    ap.add_argument("--seeds", default="5,6,7,8")
+    ap.add_argument("--num-samples", type=int, default=40)
+    ap.add_argument("--num-steps", type=int, default=40)
+    ap.add_argument("--sides", default="jax-bf16,jax-f32,port")
+    ap.add_argument("--out-dir", default=None,
+                    help="write each run's per-pose DockQ and energy here as CSV")
+    ap.add_argument("--summarize", default=None, metavar="DIR",
+                    help="run nothing: read the CSVs that --out-dir wrote into DIR (runs "
+                         "of one side and seed may be split over several calls) and "
+                         "print each side and seed over the complexes it covers")
+    args = ap.parse_args(argv)
+    if args.summarize:
+        return summarize(args.summarize)
+    ids = [s for s in args.ids.split(",") if s]
+    if not set(ids) <= set(RECORD_ORDER):
+        ap.error(f"--ids must be among {RECORD_ORDER}")
+    sides = args.sides.split(",")
+    if not set(sides) <= {"jax-bf16", "jax-f32", "port", "port-cuda"}:
+        ap.error("--sides takes jax-bf16, jax-f32, port and port-cuda")
+    record = {k: g for k, g in record_groups().items() if k in ids}
+    print(f"# JAX record (v5e): {fmt(record)}", flush=True)
+    runs = {s: [] for s in sides}
+    for seed in (int(s) for s in args.seeds.split(",")):
+        for side in sides:
+            t0 = time.perf_counter()
+            if side.startswith("port"):
+                g = port_side(ids, seed, args.num_samples, args.num_steps,
+                              cuda=side == "port-cuda")
+            else:
+                g = jax_side(ids, seed, args.num_samples, args.num_steps,
+                             {"jax-bf16": "bfloat16", "jax-f32": "float32"}[side])
+            runs[side].append(g)
+            if args.out_dir:
+                os.makedirs(args.out_dir, exist_ok=True)
+                name = f"{side}_seed{seed}_{'-'.join(ids)}.csv"
+                with open(os.path.join(args.out_dir, name), "w") as f:
+                    f.write("id,index,DockQ,energy\n")
+                    for k, a in sorted(g.items()):
+                        f.writelines(f"{k},{i},{float(d)!r},{float(e)!r}\n"
+                                     for i, (d, e) in enumerate(a))
+            print(f"# {side}, seed {seed}: {fmt(g)} ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+    for side, gs in runs.items():
+        per = "; ".join(
+            f"{k} mean {np.mean([stats(g[k])[0] for g in gs]):.4f} "
+            f"pick {np.mean([stats(g[k])[2] for g in gs]):.4f}" for k in ids)
+        print(f"# {side} over {len(gs)} seeds: {per}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -247,6 +247,7 @@ def poisoned(shape, dtype, dev):
     pytest.param(1, 223, 172, 448, 40, id="P1-K60"),   # one pose, K = 60
     pytest.param(2, 223, 172, 448, 0, id="P2-K20"),    # kNN alone, K = 20
     pytest.param(2, 24, 16, 64, 40, id="small-masked"),  # 40 valid of 64, K = 60
+    pytest.param(40, 223, 172, 512, 40, id="P40-N512"),  # the DFMDock sweep's launch shape
 ])
 def test_edge_table_rows(dev, poses, n_rec, n_lig, pad_to, sample_size):
     """The warp-per-row kernel on shapes that leave lanes of a warp idle:
@@ -344,3 +345,39 @@ def test_fused_egcl(dev, coord, poses, n_rec, n_lig, pad_to):
         assert torch.isfinite(o).all()
         assert (o - rf).abs().max() <= 1e-4 * rf.abs().max()
         assert torch.equal(o, o2)
+
+
+@pytest.mark.parametrize("coord,pad_to", [(False, 512), (True, 448)], ids=["agg-N512", "coord-N448"])
+def test_fused_egcl_forty_poses(dev, coord, pad_to):
+    """40 poses a launch: the DFMDock lineage's agg-only layers at the
+    sweep's bucket N = 512, and Picard's one forward over T = 40 poses
+    (the coord layer) at N = 448; rel 1e-4 of the largest plain value,
+    finite, two launches bit-equal."""
+    args, coord_params = egcl_inputs(dev, 40, 223, 172, pad_to, seed=7)
+    extra = (coord_params,) if coord else ()
+    out = fused_edge_layer(*args, *extra)
+    again = fused_edge_layer(*args, *extra)
+    ref = fused_edge_layer_plain(*args, *extra)
+    torch.cuda.synchronize()
+    pairs = zip(out, again, ref) if coord else [(out, again, ref)]
+    for o, o2, rf in pairs:
+        assert torch.isfinite(o).all()
+        assert (o - rf).abs().max() <= 1e-4 * rf.abs().max()
+        assert torch.equal(o, o2)
+
+
+def test_select_topk_forty_poses(dev):
+    """select_topk at the DFMDock sweep's launch shape: 40 random poses of
+    1AVX padded to N = 512, 20 + 40 edges, equal to the plain version."""
+    batch = batch_to_tensors(complex_to_batch(load_npz_complex(NPZ), pad_to=512), dev)
+    gen = torch.Generator(dev).manual_seed(40)
+    pos, _, _ = randomize_pose(gen, batch["pos"], batch["lig_mask"], batch["node_mask"],
+                               SamplerConfig(), 40)
+    dist = pairwise_ca_dist(pos.contiguous())
+    y = select_y(dist, batch["node_mask"], sample_gumbel(dist.shape, gen, dev))
+    before = select_topk.launches
+    idx_k, em_k = select_topk(dist, y, batch["node_mask"])
+    idx_p, em_p = select_topk_plain(dist, y, batch["node_mask"])
+    torch.cuda.synchronize()
+    assert select_topk.launches == before + 1
+    assert torch.equal(idx_k, idx_p) and torch.equal(em_k, em_p)

@@ -60,6 +60,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      its launch shape, and against the 1-pose sequential ODE from the same
      generator seed step by step, with the edges and bins of every forward
      compared (PICARD_STEP_TOL);
+ 9e. PDB inputs: 1AVX's receptor and ligand written as two PDB files
+     (save_pdb of the npz backbone) and docked through the CLI with the
+     trained mlsb weights and --one-hot-only (16 poses x 40 steps), then a
+     --csv of two rows (the npz, the PDB pair); the launch counts equal the
+     --npz dock's (twice over for the CSV); wall and s per pose;
+  9f. ESM2-650M at full width with seeded weights: the first 4 layers on
+     the card against the CPU (rel 1e-3, TF32 off), the embed of 1AVX's
+     two chains through all 33 layers (wall, peak memory);
+  9g. training, mlsb: the training CLI at the demo's protocol (crop 448,
+     --grad-energy --use-contrastive-loss, seed 41) cut to 9 epochs (432
+     steps of the 48-row pool); steps/s, peak memory, the logged losses
+     beside the JAX record's first line (v5e), one step on the card against
+     the CPU (loss terms rel 1e-4, gradients rel 1e-3), the saved
+     weights.npz through load_model, a 20-step profiled window (idle
+     share); only select_topk may launch;
+  9h. training, the DFMDock lineage: the same at its checkpoint's protocol
+     (20 training complexes, --grad-energy), 2 epochs (80 steps);
  10. kernel routes: 40-step samples of 16 poses under one generator seed
      through fast(), fast(select_kernel=True) and fast(edge_table_kernel=
      False).  Edge selection has one route (select_topk, ties to the lower
@@ -68,7 +85,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 The kernel table after phase 10 gives each kernel's time by CUDA events,
 its device time (torch.profiler), its enqueue time on the host (host_ms:
 1,000 calls with no synchronize), its plain version's time and its bound.
-Each main path (phases 5, 8, 9, 9b-9d and the routes of 10) runs with the
+Each main path (phases 5, 8, 9, 9b-9e, 9g-9h and the routes of 10) runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
 path that did not launch (or, on the DFMDock lineage, one that must not
 run and did) fails the run.  The last line is {"ok": true,
@@ -79,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import glob
 import json
 import math
@@ -95,11 +113,14 @@ import torch
 import dfmdock_tpu_torch.models.edges as edges_mod
 import dfmdock_tpu_torch.models.egnn as egnn_mod
 import dfmdock_tpu_torch.models.score_net as score_net_mod
-from dfmdock_tpu_torch.cli import dock, sweep
+from dfmdock_tpu_torch.cli import dock, sweep, train
 from dfmdock_tpu_torch.cli.common import build_sampler, load_model
 from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
+from dfmdock_tpu_torch.data.batching import round_up
 from dfmdock_tpu_torch.data.convert import load_npz_complex
-from dfmdock_tpu_torch.data.dataset import batch_to_tensors, complex_to_batch
+from dfmdock_tpu_torch.data.dataset import NPZDataset, batch_to_tensors, complex_to_batch
+from dfmdock_tpu_torch.data.pdb_io import save_pdb
+from dfmdock_tpu_torch.diffusion import R3Diffuser, SO3Diffuser
 from dfmdock_tpu_torch.features.sixd import (
     ANGLE_BOUNDARIES,
     DIST_BOUNDARIES,
@@ -110,6 +131,7 @@ from dfmdock_tpu_torch.features.sixd import (
 )
 from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
 from dfmdock_tpu_torch.models.edges import sample_gumbel, select_edges, select_y
+from dfmdock_tpu_torch.models.esm2 import ESM2, ESM2_650M, embed_sequence, tokenize
 from dfmdock_tpu_torch.ops import _build
 from dfmdock_tpu_torch.ops.edge_table import (
     BIN_FAMILIES,
@@ -131,6 +153,8 @@ from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, fused_edge_layer_
 from dfmdock_tpu_torch.ops.select_topk import NEG_INF, select_topk, select_topk_plain
 from dfmdock_tpu_torch.sampler import PicardSampler
 from dfmdock_tpu_torch.sampler.em import modify_coords, randomize_pose, step_schedule
+from dfmdock_tpu_torch.train.pool import make_training_batch, train_step, upload
+from dfmdock_tpu_torch.train.trainer import make_optimizer
 
 NPZ = os.path.join("data", "db5_npz", "1AVX.npz")
 P, N_PAD, STEPS = 16, 448, 40
@@ -248,6 +272,27 @@ ACCEPTABLE = 0.23  # DockQ of an acceptable pose (CAPRI)
 # ODE, and only with the same features throughout are the final poses
 # held to PICARD_STEP_TOL.
 PICARD_STEP_TOL = 1e-3  # Angstrom
+# ESM2-650M's first layers on the card against the CPU, TF32 off
+ESM_REL = 1e-3
+# Training through the CLI at the checkpoints' protocols: the demo's
+# (ckpts/db5_demo/README.md) cut to 9 epochs of its 48-row pool (432
+# steps), and the DFMDock lineage's (ckpts/db5_holdout_dfmdock: 20 training
+# complexes, --grad-energy) cut to 2 epochs (80 steps).  Each is gated on
+# finite losses, one step on the card against the CPU (loss terms within
+# TRAIN_LOSS_REL, every gradient array within TRAIN_GRAD_REL of its
+# largest, with a floor of TRAIN_GRAD_FLOOR times the largest gradient of
+# all), the saved weights loading bit-equal, and no kernel but select_topk
+# launching (training runs the eager path; edge selection is select_topk's).
+MLSB_TRAIN_FLAGS = ["--crop-size", "448", "--grad-energy", "--use-contrastive-loss",
+              "--seed", "41", "--epochs", "9", "--log-every", "50"]
+DFMDOCK_TRAIN_FLAGS = ["--lineage", "dfmdock", "--crop-size", "448", "--grad-energy",
+                 "--exclude-ids", ",".join(DFMDOCK_HOLDOUT), "--epochs", "2",
+                 "--log-every", "10"]
+DEMO_METRICS = os.path.join("ckpts", "db5_demo", "metrics.jsonl")
+DFMDOCK_METRICS = os.path.join("ckpts", "db5_holdout_dfmdock", "metrics.jsonl")
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-4, 1e-3, 1e-6
+TRAIN_ABSENT = ("edge_table", "fused_egcl", "fused_egcl_coord", "fused_energy", "edge_bins")
+TRAIN_PROFILE_STEPS = 20
 
 
 def log(msg):
@@ -1300,6 +1345,244 @@ def picard_phase(raw, device, out_root):
                              f"final poses {delta:.3e} A apart")
 
 
+def pdb_dock_phase(out_root, npz_launches):
+    """The dock from PDB files: 1AVX's receptor and ligand written as two PDBs
+    from the npz backbone (save_pdb), docked through the CLI with the
+    trained mlsb weights and --one-hot-only (P poses x STEPS steps); then a
+    --csv of two rows (the npz, the PDB pair).  The forwards launch the
+    --npz dock's kernels in the same counts (twice over for the CSV).  No
+    DockQ gate: the zeroed ESM columns are not what the model was trained
+    on."""
+    raw = load_npz_complex(NPZ)
+    rec, lig = os.path.join(out_root, "1AVX_r.pdb"), os.path.join(out_root, "1AVX_l.pdb")
+    save_pdb(rec, raw["rec_pos"], raw["rec_seq"])
+    save_pdb(lig, raw["lig_pos"], raw["lig_seq"])
+    pairs = os.path.join(out_root, "pairs.csv")
+    with open(pairs, "w") as f:
+        f.write(f"1AVX_npz,{NPZ},-\n1AVX_pdb,{rec},{lig}\n")
+    common = ["--ckpt", DEMO_NPZ, "--one-hot-only", "--num-samples", str(P),
+              "--num-steps", str(STEPS)]
+    for label, src, jobs in (("pdb dock", ["--pdb", rec, lig], 1),
+                             ("csv dock", ["--csv", pairs], 2)):
+        out = os.path.join(out_root, label.replace(" ", "_"))
+        rows, wall, launches = run_path(label, DOCK_KERNELS, lambda: dock.main(
+            src + common + ["--out-dir", out]))
+        want = {k: jobs * v for k, v in npz_launches.items()}
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, the --npz dock's x{jobs}: "
+                                 f"{want}")
+        if len(rows) != jobs * P or not np.isfinite([r["energy"] for r in rows]).all():
+            raise AssertionError(f"{label}: {len(rows)} rows or non-finite energies")
+        dq = [r["DockQ"] for r in rows]
+        log(f"# {label} 1AVX ({jobs} job{'s' * (jobs > 1)}, --one-hot-only, trained mlsb) "
+            f"P={P} steps={STEPS}: wall {wall:.3f} s, {wall / (jobs * P):.4f} s per docked "
+            f"pose; launches equal the --npz dock's x{jobs}; best DockQ {max(dq):.3f} "
+            f"(against the input complex; not gated)")
+
+
+def esm_phase(device, ref_layers=4, reps=3):
+    """ESM2-650M at full width (33 layers, 1280 hidden, 20 heads, FFN 5120)
+    with seeded weights (drawn on the card): the first `ref_layers` layers
+    on the card against the same layers on the CPU (rel <= ESM_REL, TF32
+    off), then 1AVX's two chains embedded through all 33 layers: wall
+    (synchronized, median of `reps`) and peak memory."""
+    raw = load_npz_complex(NPZ)
+    model = ESM2(ESM2_650M).to(device).init_weights(torch.Generator(device).manual_seed(0))
+    model.eval()
+    small = ESM2(dataclasses.replace(ESM2_650M, num_layers=ref_layers)).eval()
+    small.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()
+                           if not k.startswith("layers.") or int(k.split(".")[1]) < ref_layers})
+    tokens = torch.from_numpy(tokenize(raw["rec_seq"]))
+    with torch.no_grad():
+        got = model(tokens.to(device), num_layers=ref_layers).cpu()
+        want = small(tokens)
+    a_err, r_err, _ = max_errs(got, want)
+    log(f"# ESM2-650M, the first {ref_layers} layers on the card vs the CPU ({len(tokens)} "
+        f"tokens): max abs {a_err:.3e} rel {r_err:.3e} (limit {ESM_REL})")
+    if r_err > ESM_REL or not torch.isfinite(got).all():
+        raise AssertionError(f"ESM2 card vs CPU: rel {r_err:.3e}")
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(reps + 1):  # the first is the warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs = [embed_sequence(model, raw[k]) for k in ("rec_seq", "lig_seq")]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    for e, k in zip(embs, ("rec_seq", "lig_seq")):
+        if e.shape != (len(raw[k]), 1280) or not torch.isfinite(e).all():
+            raise AssertionError(f"ESM2 embedding of {k}: shape {tuple(e.shape)}")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"# ESM2-650M embed of 1AVX's two chains ({len(raw['rec_seq'])} + "
+        f"{len(raw['lig_seq'])} residues, 33 layers, {n_params / 1e6:.1f} M parameters, "
+        f"{4 * n_params / 1e9:.2f} GB f32): {1e3 * statistics.median(walls[1:]):.2f} ms "
+        f"(median of {[round(1e3 * w, 2) for w in walls[1:]]} ms; first call "
+        f"{1e3 * walls[0]:.2f} ms), peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del model
+
+
+def grad_errors(net_k, net_p):
+    """{parameter: (max abs err, max |CPU grad|)} of two nets' gradients (a
+    parameter the loss does not reach has none, read as zeros)."""
+    grad = lambda p: torch.zeros_like(p, device="cpu") if p.grad is None else p.grad.cpu()
+    params_p = dict(net_p.named_parameters())
+    return {name: ((grad(p) - grad(params_p[name])).abs().max().item(),
+                   grad(params_p[name]).abs().max().item())
+            for name, p in net_k.named_parameters()}
+
+
+def train_step_parity(label, lineage, flags, weights, device):
+    """One training step on the card against the same step on the CPU: the
+    same weights, one pool row, an injected perturbation, dropout 0 and
+    kNN-only edges (sample_size 0: the card selects through select_topk,
+    the CPU through its plain version); the loss terms within TRAIN_LOSS_REL
+    and every gradient within TRAIN_GRAD_REL of its array's largest (the
+    floor TRAIN_GRAD_FLOOR of the largest gradient of all, for arrays whose
+    gradient is zero by construction, such as the bias before a GraphNorm)."""
+    args = train.parse_args(flags + ["--device", device.type])
+    cfg = train.experiment_config(args)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0,
+                                                             sample_size=0))
+    ds = NPZDataset(args.data_dir)
+    row = make_training_batch(ds.load_raw(0), args.crop_size, round_up(args.crop_size),
+                              np.random.RandomState(0))
+    rng = np.random.RandomState(1)
+    inj = {"t": np.float32(0.4), "tr_update": rng.randn(1, 3).astype(np.float32) * 4,
+           "tr_score_gt": rng.randn(1, 3).astype(np.float32), "tr_scale": np.float32(0.3),
+           "rot_update": rng.randn(1, 3).astype(np.float32) * 0.5,
+           "rot_score_gt": rng.randn(1, 3).astype(np.float32), "rot_scale": np.float32(0.9)}
+    r3, so3 = R3Diffuser(cfg.diffuser.r3), SO3Diffuser(cfg.diffuser.so3)
+    loss_fn = train.LOSSES[lineage]
+    terms, nets = {}, {}
+    for dev in (device, torch.device("cpu")):
+        net = load_model(None, cfg, dev, lineage=lineage)
+        net.load_state_dict(weights)
+        t0 = time.perf_counter()
+        loss, terms[dev.type] = loss_fn(net, r3, so3, upload(row, dev),
+                                        torch.Generator(dev).manual_seed(0),
+                                        cfg.experiment, injected=inj)
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        log(f"# train {label}: one step (loss and backward) on {dev}: "
+            f"{time.perf_counter() - t0:.3f} s")
+        nets[dev.type] = net
+    for k, v in terms["cpu"].items():
+        a_err, r_err, _ = max_errs(terms[device.type][k].detach().cpu(), v.detach())
+        log(f"# train {label} card vs CPU {k}: {float(v):.6f} rel {r_err:.3e}")
+        if r_err > TRAIN_LOSS_REL and a_err > 1e-7:
+            raise AssertionError(f"train {label}: {k} card vs CPU rel {r_err:.3e}")
+    errs = grad_errors(nets[device.type], nets["cpu"])
+    top = max(scale for _, scale in errs.values())
+    rel = {name: err / (scale + 1e-30) for name, (err, scale) in errs.items()}
+    for name in sorted(rel, key=rel.get, reverse=True)[:3]:
+        log(f"# train {label} card vs CPU gradient of {name}: max abs {errs[name][0]:.3e}, "
+            f"rel {rel[name]:.3e} of its largest {errs[name][1]:.3e}")
+    for name, (err, scale) in errs.items():
+        if err > TRAIN_GRAD_REL * scale + TRAIN_GRAD_FLOOR * top:
+            raise AssertionError(f"train {label}: gradient of {name} card vs CPU max abs "
+                                 f"{err:.3e}, its largest {scale:.3e}")
+    log(f"# train {label} card vs CPU: {len(errs)} gradient arrays within rel "
+        f"{TRAIN_GRAD_REL} of their largest or {TRAIN_GRAD_FLOOR} of the largest of all "
+        f"({top:.3e})")
+
+
+def train_profile(net, lineage, flags, device, steps=TRAIN_PROFILE_STEPS, distinct=4):
+    """The device's busy and idle share over `steps` training steps of the
+    trained net (fresh optimizer) on `distinct` pool rows of seed 0 in
+    turn, after one warm-up step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = train.parse_args(flags + ["--device", device.type])
+    cfg = train.experiment_config(args)
+    ds = NPZDataset(args.data_dir)
+    rng = np.random.RandomState(0)
+    made = [upload(make_training_batch(ds.load_raw(i % len(ds)), args.crop_size,
+                                       round_up(args.crop_size), rng), device)
+            for i in range(distinct)]
+    rows = [made[i % distinct] for i in range(steps + 1)]
+    r3, so3 = R3Diffuser(cfg.diffuser.r3), SO3Diffuser(cfg.diffuser.so3)
+    opt = make_optimizer(net, cfg.experiment)
+    gen = torch.Generator(device).manual_seed(3)
+    step = lambda b: train_step(net, r3, so3, cfg.experiment, opt, train.LOSSES[lineage],
+                                [b], gen, rotate=True)
+    step(rows[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # no host-op tracing cost
+        t0 = time.perf_counter()
+        for b in rows[1:]:
+            step(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
+        e, "self_cuda_time_total", 0)
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if busy_ms == 0:
+        log(f"# train {lineage} profile: the profiler recorded no device time (not measured)")
+        return
+    log(f"# train {lineage} profile, {steps} steps: wall {wall_ms:.1f} ms "
+        f"({steps / wall_ms * 1e3:.2f} steps/s), device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
+        f"{sum(e.count for e in kernels)} kernel launches ({sum(e.count for e in kernels) / steps:.0f} "
+        "a step)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        log(f"#   {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / 1e3 / busy_ms:5.1f}% "
+            f"x{e.count:<6d} {e.key[:90]}")
+
+
+def train_phase(out_root, lineage, flags, record, device):
+    """Training through the CLI at crop 448 and full width: steps/s (the
+    CLI's wall, and the training loop's, which ends in a device sync), peak
+    memory, the losses of each logged step beside the JAX package's first
+    record line (v5e), one step on the card against the CPU, a profiled
+    window, and the saved weights.npz loaded through load_model (bit-equal
+    weights and forward).  Only select_topk may launch: training runs the
+    eager path."""
+    ck = os.path.join(out_root, f"train_{lineage}")
+    argv = flags + ["--ckpt-dir", ck, "--device", device.type]
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, launches = run_path(f"train {lineage}", ("select_topk",),
+                                   lambda: train.main(argv), absent=TRAIN_ABSENT)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = out["steps"]
+    log(f"# train {lineage} ({' '.join(flags)}): {steps} steps, CLI wall {wall:.3f} s "
+        f"({steps / wall:.3f} steps/s), training loop {out['wall']:.3f} s "
+        f"({steps / out['wall']:.3f} steps/s, synchronized), peak memory {peak:.3f} GB, "
+        f"{launches['select_topk'] / steps:.1f} select_topk launches a step")
+    with open(record) as f:
+        first = json.loads(f.readline())
+    log(f"# train {lineage}: the JAX package's record on TPU v5e ({record}), its first line: "
+        + json.dumps(first))
+    for r in out["rows"]:
+        log(f"# train {lineage} step {r['step']} epoch {r['epoch']}: "
+            + " ".join(f"{k} {v}" for k, v in r.items() if k.endswith("loss")))
+        if not all(np.isfinite(v) for k, v in r.items() if k != "t"):
+            raise AssertionError(f"train {lineage}: non-finite losses at step {r['step']}")
+    if not out["rows"]:
+        raise AssertionError(f"train {lineage}: no step logged")
+    weights = {k: v.detach().cpu() for k, v in out["net"].state_dict().items()}
+    train_step_parity(lineage, lineage, flags, weights, device)
+    # the saved weights through load_model: the same weights, the same forward
+    fast = DFMDockConfig(model=ModelConfig.fast())
+    saved = load_model(os.path.join(ck, "weights.npz"), fast, device, lineage=lineage)
+    mem = load_model(None, fast, device, lineage=lineage)
+    mem.load_state_dict(out["net"].state_dict())
+    for k, v in mem.state_dict().items():
+        if not torch.equal(saved.state_dict()[k], v):
+            raise AssertionError(f"train {lineage}: saved weight {k} differs")
+    batch, pos, edges, _ = parity_inputs(load_npz_complex(NPZ), device)
+    with torch.no_grad():
+        o_s, o_m = saved(batch, pos, 0.5, edges=edges), mem(batch, pos, 0.5, edges=edges)
+    for k in o_s:
+        if not torch.equal(o_s[k], o_m[k]):
+            raise AssertionError(f"train {lineage}: the saved weights' {k} differs")
+    log(f"# train {lineage}: {ck}/weights.npz loads through load_model, bit-equal to the "
+        "trained model's weights and forward (kernel path)")
+    train_profile(out["net"], lineage, flags, device)
+    return steps / out["wall"], launches
+
+
 def select_topk_library(dist, y, node_mask, knn=20, sample_size=40):
     """The same selection through two torch.topk calls (ties in torch's
     order, not the lower index's): the yardstick of select_topk."""
@@ -1444,6 +1727,18 @@ def main():
         t0 = time.perf_counter()
         picard_phase(raw, device, out_root)
         log(f"# Picard: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pdb_dock_phase(out_root, launches)
+        log(f"# PDB and CSV docks: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        esm_phase(device)
+        log(f"# ESM2-650M: {time.perf_counter() - t0:.1f} s")
+        train_rates = {}
+        for lineage, flags, record in (("mlsb", MLSB_TRAIN_FLAGS, DEMO_METRICS),
+                                       ("dfmdock", DFMDOCK_TRAIN_FLAGS, DFMDOCK_METRICS)):
+            t0 = time.perf_counter()
+            train_rates[lineage], _ = train_phase(out_root, lineage, flags, record, device)
+            log(f"# training {lineage}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     route_launches = route_phase(raw, device)
     log(f"# kernel routes: {time.perf_counter() - t0:.1f} s")
@@ -1506,7 +1801,9 @@ def main():
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "host_ms": enqueue_ms,
         })
     log(f"# total {time.perf_counter() - t_start:.1f} s; card {smi}; "
-        f"{steps_s:.2f} denoising steps/s (dock CLI), {sampler_steps_s:.2f} (sampler)")
+        f"{steps_s:.2f} denoising steps/s (dock CLI), {sampler_steps_s:.2f} (sampler); "
+        f"training steps/s at crop 448: mlsb {train_rates['mlsb']:.3f}, DFMDock "
+        f"{train_rates['dfmdock']:.3f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

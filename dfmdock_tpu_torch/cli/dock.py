@@ -1,13 +1,20 @@
-"""Dock one preprocessed complex: the port of `python -m dfmdock_tpu.cli.dock --npz`.
+"""Dock complexes: the port of `python -m dfmdock_tpu.cli.dock`.
 
-All poses run batched through the reverse SDE; the best pose is written as
-a PDB and every pose's metrics as a CSV row.  With --picard-iters the
-probability-flow ODE is solved by Picard iteration (sampler/picard.py).  Poses are ranked by their
-final energy, or (--rank-by) by the mean over --energy-draws edge-sampling
-draws of energy, icons or snorm, or by the learned linear re-ranker over a
-grid of those scores (ckpts/db5_cv/reranker.md).
+Inputs: a preprocessed --npz complex (it carries its ESM embeddings), two
+PDB files (--pdb REC LIG; ESM2 from a locally cached HuggingFace model, or
+zeros with --one-hot-only), or a --csv of (id, input1, input2) rows, each a
+npz (input2 unused) or a PDB pair.  All poses of a complex run batched
+through the reverse SDE; its best pose is written as a PDB and every pose's
+metrics (DockQ against the input structure) as a CSV row.  With
+--picard-iters the probability-flow ODE is solved by Picard iteration
+(sampler/picard.py).  Poses are ranked by their final energy, or
+(--rank-by) by the mean over --energy-draws edge-sampling draws of energy,
+icons or snorm, or by the learned linear re-ranker over a grid of those
+scores (ckpts/db5_cv/reranker.md).
 
   python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz --num-samples 16
+  python -m dfmdock_tpu_torch.cli.dock --pdb rec.pdb lig.pdb --one-hot-only
+  python -m dfmdock_tpu_torch.cli.dock --csv pairs.csv --out-dir out/
   python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz --rank-by reranker
   python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz \
       --ckpt ckpts/db5_demo/weights.npz --num-samples 1 --picard-iters 10
@@ -18,6 +25,7 @@ By default the EGCL stack runs through the CUDA kernels on `cuda`;
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import os
 
@@ -34,12 +42,51 @@ from dfmdock_tpu_torch.cli.common import (
 from dfmdock_tpu_torch.cli.sweep import _multi_draw_scores
 from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
 from dfmdock_tpu_torch.data.convert import load_npz_complex
-from dfmdock_tpu_torch.data.pdb_io import get_full_coords, save_pdb
+from dfmdock_tpu_torch.data.esm import BACKENDS, ESM_DIM
+from dfmdock_tpu_torch.data.pdb_io import get_full_coords, parse_pdb, save_pdb
 from dfmdock_tpu_torch.sampler import EMSampler, PicardSampler
 
 DEFAULT_RERANKER = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "ckpts", "db5_cv", "reranker_weights.json")
+
+
+def load_inputs(args, device) -> list[dict]:
+    """The raw complexes of --npz, --pdb or --csv, in order."""
+    if args.npz:
+        return [_complex_from_npz(os.path.splitext(os.path.basename(args.npz))[0], args.npz)]
+    if args.pdb:
+        return [_complex_from_pdbs("complex", args.pdb[0], args.pdb[1], args, device)]
+    jobs = []
+    with open(args.csv) as f:
+        for row in csv.reader(f):
+            cid, p1, p2 = row[0], row[1], row[2]
+            jobs.append(_complex_from_npz(cid, p1) if p1.endswith(".npz")
+                        else _complex_from_pdbs(cid, p1, p2, args, device))
+    return jobs
+
+
+def _complex_from_npz(cid, path):
+    d = load_npz_complex(path)
+    d["id"] = cid
+    return d
+
+
+def _complex_from_pdbs(cid, rec_pdb, lig_pdb, args, device):
+    """A raw complex from two PDB files; the ESM columns are zeros under
+    --one-hot-only (so the trained 1301-wide models still load), else the
+    provider's embeddings."""
+    rec, lig = parse_pdb(rec_pdb), parse_pdb(lig_pdb)
+    if args.one_hot_only:
+        rec_x = np.zeros((len(rec.seq), ESM_DIM), np.float32)
+        lig_x = np.zeros((len(lig.seq), ESM_DIM), np.float32)
+    else:
+        from dfmdock_tpu_torch.data.esm import get_provider
+
+        esm = get_provider(args.esm_backend, device)
+        rec_x, lig_x = esm.embed(rec.seq), esm.embed(lig.seq)
+    return {"id": cid, "rec_x": rec_x, "rec_pos": rec.bb_coords, "rec_seq": rec.seq,
+            "lig_x": lig_x, "lig_pos": lig.bb_coords, "lig_seq": lig.seq}
 
 
 def _reranker_scores(net, raw, results, rows, weights_path, k_draws, seed, device):
@@ -77,7 +124,11 @@ def _reranker_scores(net, raw, results, rows, weights_path, k_draws, seed, devic
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--npz", required=True, help="preprocessed complex npz")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--npz", help="preprocessed complex npz")
+    src.add_argument("--pdb", nargs=2, metavar=("REC", "LIG"), help="two PDB files")
+    src.add_argument("--csv", help="CSV of (id, input1, input2) rows: a npz, or a "
+                                   "receptor and a ligand PDB")
     ap.add_argument("--ckpt", default=None,
                     help="weights as a flat-dict .npz (params.py); default: "
                          "seeded random weights")
@@ -97,6 +148,14 @@ def main(argv=None) -> list[dict]:
                          "parallel-in-time Picard iterations, each one forward "
                          "over all num-steps x num-samples poses, instead of "
                          "num-steps sequential forwards (implies --ode)")
+    ap.add_argument("--one-hot-only", action="store_true",
+                    help="PDB inputs: zeros in the ESM columns instead of ESM2 "
+                         "embeddings (for a model trained without ESM)")
+    ap.add_argument("--esm-backend", choices=BACKENDS, default="auto",
+                    help="ESM2 for PDB inputs: 'torch' = the port's ESM2 on "
+                         "--device (the JAX package's 'jax'), 'hf' = "
+                         "transformers' EsmModel, 'auto' = torch, else hf; "
+                         "both read the locally cached HF weights")
     ap.add_argument("--energy-draws", type=int, default=1,
                     help="> 1: rank by the mean energy over K independent "
                          "edge-sampling draws")
@@ -150,9 +209,18 @@ def main(argv=None) -> list[dict]:
                                 num_iters=args.picard_iters)
     os.makedirs(args.out_dir, exist_ok=True)
 
-    job = load_npz_complex(args.npz)
-    job["id"] = os.path.splitext(os.path.basename(args.npz))[0]
     generator = torch.Generator(device).manual_seed(args.seed)
+    all_rows = []
+    for job in load_inputs(args, device):
+        rows = _dock_job(args, cfg, net, sampler, job, generator, device)
+        all_rows.extend(rows)
+    write_csv(os.path.join(args.out_dir, args.out_csv), all_rows)
+    print(f"wrote {os.path.join(args.out_dir, args.out_csv)}")
+    return all_rows
+
+
+def _dock_job(args, cfg, net, sampler, job, generator, device) -> list[dict]:
+    """Dock one complex, rank its poses, write its best (or every) pose."""
     rows, results, (R, L) = dock_complex(
         sampler, job, generator, args.num_samples, device,
         native=(job["rec_pos"], job["lig_pos"]),
@@ -183,8 +251,6 @@ def main(argv=None) -> list[dict]:
                  get_full_coords(coords), job["rec_seq"] + job["lig_seq"], delim=R - 1)
     print(f"{job['id']}: best pose {best} energy {rows[best]['energy']:.4f} "
           f"DockQ {rows[best]['DockQ']:.3f}")
-    write_csv(os.path.join(args.out_dir, args.out_csv), rows)
-    print(f"wrote {os.path.join(args.out_dir, args.out_csv)}")
     return rows
 
 

@@ -89,7 +89,7 @@ class DiffuserConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
-    """Training flags, carried for config equality (training is not ported yet)."""
+    """Training flags (train/losses.py, train/dfmdock_losses.py, train/trainer.py)."""
 
     lr: float = 1e-4
     weight_decay: float = 0.0
@@ -157,6 +157,15 @@ def _build(cls, d: dict):
         sub = _SUBCONFIGS.get(k)
         kwargs[k] = _build(sub, v) if (sub and isinstance(v, dict)) else v
     return cls(**kwargs)
+
+
+def to_yaml(cfg: DFMDockConfig, path: str):
+    """Write a config as the JAX package writes it (`dataclasses.asdict`,
+    keys in field order)."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False)
 
 
 def from_yaml(path: str) -> DFMDockConfig:

@@ -20,10 +20,14 @@ def pad_complex(
     rec_pos: np.ndarray,
     lig_pos: np.ndarray,
     pad_to: int | None = None,
+    res_id: np.ndarray | None = None,
+    asym_id: np.ndarray | None = None,
 ):
     """Static-shape batch dict: x [N,F], pos [N,3,3], node_mask [N] bool,
     lig_mask [N] f32 (valid ligand rows), res_id/asym_id [N] int32, n_rec,
-    n_lig.  pad_to defaults to R+L rounded up to the energy chunk."""
+    n_lig.  pad_to defaults to R+L rounded up to the energy chunk.  res_id
+    runs over the concatenated complex unless the original (cropped) ids
+    are given; asym_id is 0 on receptor rows and 1 after, unless given."""
     R, L = rec_x.shape[0], lig_x.shape[0]
     n = R + L
     n_pad = round_up(n) if pad_to is None else pad_to
@@ -47,8 +51,12 @@ def pad_complex(
 
     # res_id over the concatenated complex; asym_id 0 = receptor, 1 = ligand
     rid = np.arange(n_pad, dtype=np.int32)
+    if res_id is not None:
+        rid[:n] = res_id
     aid = np.zeros(n_pad, np.int32)
     aid[R:] = 1
+    if asym_id is not None:
+        aid[:n] = asym_id
 
     return {
         "x": x,

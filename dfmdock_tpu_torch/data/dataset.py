@@ -54,6 +54,9 @@ class NPZDataset:
         else:
             self.ids = sorted(f[:-4] for f in os.listdir(data_dir) if f.endswith(".npz"))
 
+    def __len__(self) -> int:
+        return len(self.ids)
+
     def load_raw(self, idx: int) -> dict:
         d = load_npz_complex(os.path.join(self.data_dir, self.ids[idx] + ".npz"))
         d["id"] = self.ids[idx]

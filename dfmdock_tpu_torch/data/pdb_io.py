@@ -1,16 +1,66 @@
-"""PDB writing for docked poses and trajectories (the writer half of
-`dfmdock_tpu/data/pdb_io.py`).
+"""Dependency-free PDB reading and writing for backbone-level docking
+(mirrors `dfmdock_tpu/data/pdb_io.py`).
 
-N/CA/C(/O/CB) records with CB reconstructed from the backbone and O placed
-by ideal geometry (reference utils/pdb.py, inference_mlsb.py).
+The reader keeps ATOM records only, residues only when the full N/CA/C
+backbone is present, and the sequence from 3-letter codes (unknown -> X).
+The writer emits N/CA/C(/O/CB) records with CB reconstructed from the
+backbone and O placed by ideal geometry (reference utils/pdb.py,
+inference_mlsb.py).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 
-from dfmdock_tpu_torch.features.residues import restype_1to3
+from dfmdock_tpu_torch.features.residues import restype_1to3, restype_3to1
+
+
+@dataclasses.dataclass
+class PDBChainData:
+    seq: str
+    bb_coords: np.ndarray  # [L, 3, 3] N/CA/C
+    aa_coords: np.ndarray  # [A, 3] every kept (non-hetero) atom
+    atom_lines: list  # (residue key, atom name, residue name, chain) per kept atom
+    chain_ids: list  # chain of each kept residue
+
+
+def parse_pdb(path: str, chains: list[str] | None = None) -> PDBChainData:
+    """ATOM records of `path` (of `chains` only, if given), grouped into
+    residues by (chain id, residue number, insertion code); the first
+    altloc of each atom name wins; residues without a complete N/CA/C
+    backbone are dropped."""
+    residues: dict = {}
+    atoms = []
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("ATOM"):
+                continue
+            chain_id = line[21]
+            if chains is not None and chain_id not in chains:
+                continue
+            key = (chain_id, line[22:26].strip(), line[26])
+            res_name = line[17:20].strip()
+            atom_name = line[12:16].strip()
+            xyz = (float(line[30:38]), float(line[38:46]), float(line[46:54]))
+            rec = residues.setdefault(key, {"name": res_name, "atoms": {}})
+            rec["atoms"].setdefault(atom_name, xyz)
+            atoms.append((key, atom_name, xyz, res_name, chain_id))
+
+    kept = {key: rec for key, rec in residues.items()
+            if {"N", "CA", "C"}.issubset(rec["atoms"])}
+    kept_atoms = [a for a in atoms if a[0] in kept]
+    return PDBChainData(
+        seq="".join(restype_3to1.get(rec["name"], "X") for rec in kept.values()),
+        bb_coords=np.asarray(
+            [[rec["atoms"][a] for a in ("N", "CA", "C")] for rec in kept.values()],
+            np.float64).astype(np.float32).reshape(-1, 3, 3),
+        aa_coords=np.asarray([a[2] for a in kept_atoms],
+                             np.float64).astype(np.float32).reshape(-1, 3),
+        atom_lines=[(key, name, res, chain) for key, name, _, res, chain in kept_atoms],
+        chain_ids=[key[0] for key in kept],
+    )
 
 
 def place_fourth_atom(a, b, c, length, planar, dihedral):

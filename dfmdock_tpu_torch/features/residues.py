@@ -18,6 +18,7 @@ restype_1to3 = {
     "S": "SER", "T": "THR", "W": "TRP", "Y": "TYR", "V": "VAL",
     "X": "UNK",
 }
+restype_3to1 = {v: k for k, v in restype_1to3.items() if k != "X"}
 
 
 def sequence_to_onehot(sequence: str) -> np.ndarray:

@@ -108,23 +108,24 @@ def build_edge_table_unfused(idx, pos, res_id, asym_id, *, normalize: bool):
 
 
 def edge_stack(c, layers, spatial_w, positional_w, batch, pos, h, idx, edge_mask,
-               lig_valid):
+               lig_valid, fused: bool | None = None):
     """The EGCL stack of a score network over the selected edges, on the
     route its config `c` names: the edge table (`c.edge_table_kernel`: one
     kernel, else its bins-only mode and torch geometry) and ops/fused_egcl
-    with `c.use_pallas`, else the eager float32 layers.  layers: the EGCL
+    with `c.use_pallas` (or `fused`, where given), else the eager float32
+    layers (training takes these: the kernels are inference-only).  layers: the EGCL
     modules; spatial_w [100, E] / positional_w [66, E]: the embed tables.
     pos [P, N, 3, 3], h [P, N, C] -> (h, CA coordinates after the stack)."""
     node_mask = batch["node_mask"]
     ca = pos[..., 1, :]
-    if c.use_pallas:
+    if (c.use_pallas if fused is None else fused):
         build = build_edge_table if c.edge_table_kernel else build_edge_table_unfused
         ebin, egeo = build(idx, pos.contiguous(), batch["res_id"], batch["asym_id"],
                            normalize=c.normalize)
         return egnn_apply_fused(layers, spatial_w, positional_w, h, ca, idx, edge_mask,
                                 ebin, egeo, node_mask, lig_valid)
     rp = relpos_bin_at(batch["res_id"], batch["asym_id"], idx)
-    db, ob, tb, pb = sixd_bins_at(pos, idx)
+    db, ob, tb, pb = sixd_bins_at(pos.detach(), idx)
     edge_attr = spatial_embed_from_bins(spatial_w, db, ob, tb, pb) + positional_w[rp.long()]
     return egnn_apply(layers, h, ca, idx, edge_mask, edge_attr, node_mask, lig_valid,
                       normalize=c.normalize)

@@ -10,8 +10,9 @@ padded complex, as in `score_net.ScoreNet`.  Against the mlsb ScoreNet:
   f_j = sum_i unit(ca_i - ca_j) * MLP([h_i, h_j, D_ij]) over receptor rows
   i, divided by the receptor count with agg="mean";
 - pair heads for the energy (masked to D < cut_off) and the confidence
-  logit, the node-level interface head `to_ires`; `to_dist` (the distogram)
-  is carried for its weights, its loss waits for training.
+  logit, the node-level interface head `to_ires`; the distogram head
+  `to_dist` runs in training only, where its loss is computed inside the
+  row-chunk loop (`apply_train(gt_dist=...)`).
 
 The pair heads run over one row-chunked scan, each head's first Linear
 pre-split into h_i W[:C] + h_j W[C:2C] + D W[2C], so [P, R, L, C] never
@@ -22,20 +23,32 @@ all N rows; here 64-row chunks of the receptor rows).  D and the cutoff
 masks are the CA distances of the (detached) input pose.
 
 The net does not centre its input; `dfmdock.DFMDockModel` does.
+
+`apply_train` is the training forward (the JAX package's `apply(train=True)`
+with `_core`'s scan over all N rows, masked to receptor x ligand pairs):
+eager float32, dropout in the scale MLPs, the pair heads and the distogram
+loss in checkpointed row chunks, and dedx = -dE/dpos through the explicit
+chain rule of `ScoreNet.apply_train`.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dfmdock_tpu_torch.config import ModelConfig
 from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
 from dfmdock_tpu_torch.features.sixd import SPATIAL_DIM, pairwise_ca_dist
 from dfmdock_tpu_torch.models.edges import select_edges
 from dfmdock_tpu_torch.models.egnn import EGCL, edge_stack
-from dfmdock_tpu_torch.models.modules import LN_EPS, TimeEmbed, init_weights, time_tensor
-from dfmdock_tpu_torch.models.score_net import ScaleMLP
+from dfmdock_tpu_torch.models.modules import (
+    LN_EPS,
+    TimeEmbed,
+    init_weights,
+    pair_energy_rows,
+)
+from dfmdock_tpu_torch.models.score_net import ScaleMLP, pose_scores
 
 ROW_CHUNK = 64
 NUM_DIST_BINS = 64  # distogram head
@@ -128,15 +141,7 @@ class EGNNNet(nn.Module):
             n_lig = lig_valid.sum().clamp(min=1.0)
         else:
             f, n_lig = heads["f"], 1.0
-        tr_pred = f.sum(-2, keepdim=True) / n_lig
-        rot_pred = torch.linalg.cross(ca * lig_valid[:, None], f, dim=-1).sum(
-            -2, keepdim=True) / n_lig
-        t_emb = self.t_embed(time_tensor(t, pos.device))
-        out = {
-            "tr_score": self.tr_scale(tr_pred, t_emb),
-            "rot_score": self.rot_scale(rot_pred, t_emb),
-            "f": f,
-        }
+        out = pose_scores(self, ca, f, n_lig, t)
         if scores_only:
             return out
         e_num, e_den = heads["energy"]
@@ -146,6 +151,135 @@ class EGNNNet(nn.Module):
         out["ires_logits"] = self._ires(h)
         out["num_clashes"] = heads["num_clashes"]
         return out
+
+    def apply_train(self, batch: dict, pos: torch.Tensor, t, *, generator=None,
+                    gumbel=None, edges=None, dedx: bool = False,
+                    return_energy: bool = False, gt_dist=None) -> dict | torch.Tensor:
+        """Training forward; the contract of `ScoreNet.apply_train`, on
+        coordinates the caller has centred.  `gt_dist` [P, N, N] (the
+        ground-truth CA distances) adds the masked distogram cross-entropy
+        as `dist_loss`.  Returns tr_score, rot_score, f, energy,
+        ires_logits, confidence_logits (and dist_loss, dedx), or with
+        `return_energy` the energy [P] alone.  D and the cutoff masks are
+        detached from the coordinates, as in the reference, so dedx flows
+        through the EGNN's coordinate use only."""
+        c = self.cfg
+        node_mask, lig_mask = batch["node_mask"], batch["lig_mask"]
+        valid = node_mask.to(torch.float32)
+        lig_valid = lig_mask * valid
+        rec_valid = (1.0 - lig_mask) * valid
+        p, n = pos.shape[:2]
+        if dedx:
+            pos = pos.detach().requires_grad_(True)
+        h = self.embed_nodes(batch["x"]).expand(p, n, -1)
+        ca = pos[..., 1, :]
+        dist = pairwise_ca_dist(pos).detach()
+        if edges is None:
+            edges = select_edges(dist, node_mask, c.knn, c.sample_size,
+                                 generator=generator, gumbel=gumbel)
+        idx, edge_mask = edges
+        h, _ = edge_stack(
+            c, self.egnn, self.spatial_embed.weight.t(), self.positional_embed.weight.t(),
+            batch, pos, h, idx, edge_mask, lig_valid, fused=False)
+
+        pair_valid = rec_valid[:, None] * lig_valid[None, :]
+        energy_mask = pair_valid * (dist < c.cut_off)
+        e_den = (energy_mask.sum((-2, -1)).clamp(min=1.0)[:, None, None] if c.agg == "mean"
+                 else torch.ones(1, 1, 1, device=h.device))
+        if dedx:
+            e_num, g_h = self._energy_and_grad_h(h, dist, energy_mask)
+            energy = e_num / e_den[:, 0, 0]
+            (dpos,) = torch.autograd.grad(h, pos, g_h / e_den, create_graph=True)
+        heads = self._pair_heads_train(h, ca, dist, pair_valid, energy_mask, gt_dist,
+                                       energy=not dedx, only_energy=return_energy)
+        if not dedx:
+            energy = heads["e_num"] / e_den[:, 0, 0]
+        if return_energy:
+            return energy
+
+        den = pair_valid.sum().clamp(min=1.0)
+        if c.agg == "mean":
+            f = heads["f"] / rec_valid.sum().clamp(min=1.0) * lig_valid[:, None]
+            n_lig = lig_valid.sum().clamp(min=1.0)
+        else:
+            f, n_lig = heads["f"] * lig_valid[:, None], 1.0
+        out = pose_scores(self, ca.detach(), f, n_lig, t, c.dropout, generator)
+        out.update(energy=energy, ires_logits=self._ires(h),
+                   confidence_logits=heads["c_num"] / den)
+        if gt_dist is not None:
+            out["dist_loss"] = heads["d_num"] / den
+        if dedx:
+            out["dedx"] = -dpos[..., 1, :] * lig_valid[:, None]
+        return out
+
+    def _pair_heads_train(self, h, ca, dist, pair_valid, energy_mask, gt_dist, energy,
+                          only_energy):
+        """The pair heads over all N x N pairs in ROW_CHUNK-row chunks, each
+        chunk recomputed in the backward (checkpointing): the force summed
+        over receptor rows f [P, N, 3], and the masked sums e_num (with
+        `energy`), c_num and d_num (with gt_dist) [P].  `only_energy`
+        evaluates the energy head alone."""
+        heads = {"energy": self.to_energy} if only_energy else {
+            "force": self.to_force, "confidence": self.to_confidence,
+            **({"energy": self.to_energy} if energy else {}),
+            **({"dist": self.to_dist} if gt_dist is not None else {})}
+        parts = {k: head.split(h, h) for k, head in heads.items()}
+        bounds = torch.linspace(3.25, 50.75, NUM_DIST_BINS - 1, device=h.device) ** 2
+
+        def rows(s, d_c, em_c, pv_c, ca_c, gt_c, parts):
+            pre = {k: v[0][:, s : s + d_c.shape[-2], None, :] + v[1][:, None]
+                   for k, v in parts.items()}
+            out = {}
+            if "energy" in heads:
+                out["e_num"] = (self.to_energy(pre["energy"], d_c)[..., 0] * em_c).sum((-2, -1))
+            if only_energy:
+                return out
+            fs = self.to_force(pre["force"], d_c)  # [P, c, N, 1]
+            vec = ca_c[:, :, None, :] - ca[:, None, :, :]  # rec_i - lig_j
+            unit = vec / torch.sqrt((vec * vec).sum(-1, keepdim=True).clamp(min=1e-12))
+            out["f"] = (unit * fs * pv_c[..., None]).sum(-3)
+            out["c_num"] = (self.to_confidence(pre["confidence"], d_c)[..., 0]
+                            * pv_c).sum((-2, -1))
+            if gt_c is not None:
+                logits = self.to_dist(pre["dist"], d_c)  # [P, c, N, 64]
+                true_bins = (gt_c[..., None] ** 2 > bounds).sum(-1)
+                ce = -torch.log_softmax(logits, -1).gather(-1, true_bins[..., None])[..., 0]
+                out["d_num"] = (ce * pv_c).sum((-2, -1))
+            return out
+
+        total = {}
+        n = h.shape[-2]
+        for s in range(0, n, ROW_CHUNK):
+            e = slice(s, s + ROW_CHUNK)
+            gt_c = None if gt_dist is None else gt_dist[:, e]
+            out = checkpoint(rows, s, dist[:, e], energy_mask[:, e], pair_valid[e],
+                             ca[:, e], gt_c, parts, use_reentrant=False)
+            for k, v in out.items():
+                total[k] = total[k] + v if k in total else v
+        return total
+
+    def _energy_and_grad_h(self, h, dist, energy_mask):
+        """The energy head's masked sum [P] and its gradient with respect to
+        h [P, N, C]: each row chunk's gradient taken inside its checkpointed
+        region (`pair_energy_rows`), then back through the first Linear's
+        h_i / h_j parts (JAX `_energy_and_grads`; D is detached, so its
+        gradient is not needed)."""
+        head = self.to_energy
+        c = h.shape[-1]
+        w = head.l0.weight  # [C, 2C + 1]
+        eh_i, eh_j = head.split(h, h)
+        args = (head.ln.weight, head.ln.bias, head.l1.weight[0])
+        nums, g_i, g_j = [], [], 0.0
+        for s in range(0, h.shape[-2], ROW_CHUNK):
+            e = slice(s, s + ROW_CHUNK)
+            num_c, g_i_c, g_j_c, _ = checkpoint(
+                pair_energy_rows, eh_i[:, e], eh_j, energy_mask[:, e], *args,
+                dist[:, e], w[:, -1], True, use_reentrant=False)
+            nums.append(num_c)
+            g_i.append(g_i_c)
+            g_j = g_j + g_j_c
+        g_h = torch.cat(g_i, -2) @ w[:, :c] + g_j @ w[:, c : 2 * c]
+        return sum(nums), g_h
 
     def _pair_heads(self, h, ca, dist, rec, lig, scores_only):
         """The pair heads over receptor rows x ligand columns, in chunks of

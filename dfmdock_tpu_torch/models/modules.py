@@ -56,6 +56,45 @@ class TimeEmbed(nn.Module):
         return torch.sigmoid(self.l0(gaussian_fourier(self.W, t.reshape(-1))))
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout with its mask drawn from `generator` (train mode)."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def pair_energy_rows(hr_c, hl, mask_c, ln_g, ln_b, w2, d_c=None, w_d=None,
+                     with_grads: bool = False):
+    """One row chunk of a pair energy head's masked sum,
+    num = sum_ij m_ij w2 . silu(LN(hr_i + hl_j [+ d_ij w_d])),
+    and with `with_grads` its gradients with respect to hr_c, hl (and d_c),
+    written out by the chain rule (LayerNorm's backward in closed form), so
+    that a caller differentiating them again (second order) goes through
+    plain operations.
+
+    hr_c [..., c, C] the chunk's rows, hl [..., N, C], mask_c [..., c, N],
+    d_c [..., c, N]; ln_g, ln_b, w2, w_d [C].  Returns num [...] or
+    (num, d num / d hr_c [..., c, C], d num / d hl [..., N, C],
+    d num / d d_c [..., c, N] or None)."""
+    x = hr_c[..., :, None, :] + hl[..., None, :, :]
+    if d_c is not None:
+        x = x + d_c[..., None] * w_d
+    xc = x - x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + LN_EPS)
+    xhat = xc * rstd
+    y = xhat * ln_g + ln_b
+    sig = torch.sigmoid(y)
+    num = ((y * sig) @ w2 * mask_c).sum((-2, -1))
+    if not with_grads:
+        return num
+    g_xhat = (mask_c[..., None] * w2) * (sig * (1.0 + y * (1.0 - sig))) * ln_g
+    g_x = rstd * (g_xhat - g_xhat.mean(-1, keepdim=True)
+                  - xhat * (g_xhat * xhat).mean(-1, keepdim=True))
+    g_d = None if d_c is None else g_x @ w_d
+    return num, g_x.sum(-2), g_x.sum(-3), g_d
+
+
 def time_tensor(t, device) -> torch.Tensor:
     """A forward's t as a float32 tensor on `device`: a python float, or a
     [P] tensor with one t per pose."""

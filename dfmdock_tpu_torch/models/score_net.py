@@ -23,13 +23,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dfmdock_tpu_torch.config import ModelConfig
+from dfmdock_tpu_torch.data.batching import ENERGY_ROW_CHUNK
 from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
 from dfmdock_tpu_torch.features.sixd import SPATIAL_DIM, pairwise_ca_dist
 from dfmdock_tpu_torch.models.edges import select_edges
 from dfmdock_tpu_torch.models.egnn import EGCL, edge_stack
-from dfmdock_tpu_torch.models.modules import LN_EPS, TimeEmbed, init_weights, time_tensor
+from dfmdock_tpu_torch.models.modules import (
+    LN_EPS,
+    TimeEmbed,
+    dropout,
+    init_weights,
+    pair_energy_rows,
+    time_tensor,
+)
 from dfmdock_tpu_torch.ops.energy_head import fused_energy, fused_energy_plain
 
 
@@ -42,12 +51,27 @@ class ScaleMLP(nn.Module):
         self.ln = nn.LayerNorm(inner_dim, eps=LN_EPS)
         self.l1 = nn.Linear(inner_dim, 1, bias=False)
 
-    def forward(self, vec: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
-        """vec [P, 1, 3], t_emb [1 or P, inner] -> [P, 1, 3]."""
+    def forward(self, vec: torch.Tensor, t_emb: torch.Tensor, drop: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """vec [P, 1, 3], t_emb [1 or P, inner] -> [P, 1, 3]; `drop` is the
+        dropout rate after the LayerNorm (train mode), its mask drawn from
+        `generator`."""
         norm = torch.sqrt((vec * vec).sum(-1, keepdim=True) + 1e-24)
         inp = torch.cat([norm, t_emb[:, None, :].expand(vec.shape[0], 1, -1)], -1)
-        y = self.l1(F.silu(self.ln(self.l0(inp))))
+        y = self.l1(F.silu(dropout(self.ln(self.l0(inp)), drop, generator)))
         return vec / (norm + 1e-6) * F.softplus(y)
+
+
+def pose_scores(net, r, f, n_lig, t, drop: float = 0.0, generator=None) -> dict:
+    """tr / rot scores from a force f [P, N, 3] (zero off the ligand) on the
+    CAs r [P, N, 3]: the force and its torque summed, over n_lig, through
+    the net's scale MLPs (`drop`: their dropout rate in training).
+    Returns tr_score, rot_score [P, 1, 3] and f."""
+    t_emb = net.t_embed(time_tensor(t, f.device))
+    tr_pred = f.sum(-2, keepdim=True) / n_lig
+    rot_pred = torch.linalg.cross(r, f, dim=-1).sum(-2, keepdim=True) / n_lig
+    return {"tr_score": net.tr_scale(tr_pred, t_emb, drop, generator),
+            "rot_score": net.rot_scale(rot_pred, t_emb, drop, generator), "f": f}
 
 
 class ScoreNet(nn.Module):
@@ -121,15 +145,7 @@ class ScoreNet(nn.Module):
             batch, pos, h, idx, edge_mask, lig_valid)
 
         # force from the coordinate update of ligand CAs -> tr/rot scores
-        f = (coord_out - ca) * lig_valid[:, None]
-        tr_pred = f.sum(-2, keepdim=True) / n_lig
-        rot_pred = torch.linalg.cross(ca, f, dim=-1).sum(-2, keepdim=True) / n_lig
-        t_emb = self.t_embed(time_tensor(t, pos.device))
-        out = {
-            "tr_score": self.tr_scale(tr_pred, t_emb),
-            "rot_score": self.rot_scale(rot_pred, t_emb),
-            "f": f,
-        }
+        out = pose_scores(self, ca, (coord_out - ca) * lig_valid[:, None], n_lig, t)
         if scores_only:
             return out
 
@@ -138,6 +154,106 @@ class ScoreNet(nn.Module):
         out["ires"] = self._ires(h)
         out["num_clashes"] = (pair_valid * (dist <= 3.0)).sum((-2, -1)).to(torch.int32)
         return out
+
+    def apply_train(self, batch: dict, pos: torch.Tensor, t, *, generator=None,
+                    gumbel=None, edges=None, dedx: bool = False,
+                    return_energy: bool = False) -> dict | torch.Tensor:
+        """Training forward (the JAX package's `apply(train=True)`): the
+        eager float32 path whatever `cfg.use_pallas` says (the kernels are
+        inference-only on both sides), dropout in the scale MLPs, the
+        energy head in row chunks under activation checkpointing.
+
+        pos [P, N, 3, 3] and t (a float or a tensor) as `forward`; the edge
+        noise, injected Gumbel noise or edges as there, the dropout masks
+        from `generator`.  Returns tr_score, rot_score, f, energy, ires and,
+        with `dedx`, dedx = -dE/dpos on the ligand CAs [P, N, 3], built so
+        that a loss on it differentiates again (second order); with
+        `return_energy` only the energy [P].
+
+        dedx follows the JAX package's explicit chain rule: one backward
+        through the backbone (pos -> h) from dE/dh, and dE/dh from the
+        energy head's row chunks, each chunk's gradient written out by
+        `pair_energy_rows` and recomputed under checkpointing, so the
+        second-order backward holds one [chunk, N, C] pair block at a time
+        and never the stack of all of them."""
+        c = self.cfg
+        node_mask, lig_mask = batch["node_mask"], batch["lig_mask"]
+        valid = node_mask.to(torch.float32)
+        lig_valid = lig_mask * valid
+        rec_valid = (1.0 - lig_mask) * valid
+        n_lig = lig_valid.sum().clamp(min=1.0)
+        p, n = pos.shape[:2]
+        if c.center_in_net:
+            center = (pos[..., 1, :] * lig_valid[:, None]).sum(-2) / n_lig
+            pos = pos - center.detach()[:, None, None, :]
+        if dedx:
+            pos = pos.detach().requires_grad_(True)
+
+        h = self.embed_nodes(batch["x"]).expand(p, n, -1)
+        ca = pos[..., 1, :]
+        dist = pairwise_ca_dist(pos).detach()
+        if edges is None:
+            edges = select_edges(dist, node_mask, c.knn, c.sample_size,
+                                 generator=generator, gumbel=gumbel)
+        idx, edge_mask = edges
+        h, coord_out = edge_stack(
+            c, self.egnn, self.spatial_embed.weight.t(), self.positional_embed.weight.t(),
+            batch, pos, h, idx, edge_mask, lig_valid, fused=False)
+
+        pair_mask = rec_valid[:, None] * lig_valid[None, :] * (dist < c.cut_off)
+        if dedx:
+            energy, g_h = self._energy_and_grad_h(h, pair_mask)
+            (dpos,) = torch.autograd.grad(h, pos, g_h, create_graph=True)
+        else:
+            energy = self._energy_train(h, pair_mask)
+        if return_energy:
+            return energy
+
+        r = ca.detach()
+        out = pose_scores(self, r, (coord_out - r) * lig_valid[:, None], n_lig, t,
+                          c.dropout, generator)
+        out.update(energy=energy, ires=self._ires(h))
+        if dedx:
+            out["dedx"] = -dpos[..., 1, :] * lig_valid[:, None]
+        return out
+
+    def _energy_halves(self, h):
+        c = h.shape[-1]
+        w = self.to_energy["l0"].weight  # [C, 2C]: h_i / h_j halves
+        ln = self.to_energy["ln"]
+        return (h @ w[:, :c].t(), h @ w[:, c:].t(),
+                (ln.weight, ln.bias, self.to_energy["l1"].weight[0]))
+
+    def _energy_train(self, h, pair_mask):
+        """The energy [P] of `_energy` in row chunks, each recomputed in the
+        backward (checkpointing) instead of keeping its [chunk, N, C]
+        intermediates."""
+        hr, hl, head = self._energy_halves(h)
+        chunk = min(ENERGY_ROW_CHUNK, h.shape[-2])
+        num = sum(checkpoint(pair_energy_rows, hr[:, s : s + chunk], hl,
+                             pair_mask[:, s : s + chunk], *head, use_reentrant=False)
+                  for s in range(0, h.shape[-2], chunk))
+        return num / (pair_mask.sum((-2, -1)) + 1e-6)
+
+    def _energy_and_grad_h(self, h, pair_mask):
+        """The energy [P] and dE/dh [P, N, C]: each row chunk's gradient
+        with respect to hr and hl taken inside its checkpointed region,
+        then back through the first Linear's two halves."""
+        hr, hl, head = self._energy_halves(h)
+        n, chunk = h.shape[-2], min(ENERGY_ROW_CHUNK, h.shape[-2])
+        nums, g_hr, g_hl = [], [], 0.0
+        for s in range(0, n, chunk):
+            num_c, g_hr_c, g_hl_c, _ = checkpoint(
+                pair_energy_rows, hr[:, s : s + chunk], hl, pair_mask[:, s : s + chunk],
+                *head, None, None, True, use_reentrant=False)
+            nums.append(num_c)
+            g_hr.append(g_hr_c)
+            g_hl = g_hl + g_hl_c
+        den = (pair_mask.sum((-2, -1)) + 1e-6)
+        w = self.to_energy["l0"].weight
+        c = h.shape[-1]
+        g_h = (torch.cat(g_hr, -2) @ w[:, :c] + g_hl @ w[:, c:]) / den[:, None, None]
+        return sum(nums) / den, g_h
 
     def _energy(self, h: torch.Tensor, pair_mask: torch.Tensor) -> torch.Tensor:
         """Masked mean of MLP(concat[h_i, h_j]) over receptor x ligand pairs,

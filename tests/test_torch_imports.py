@@ -1,6 +1,7 @@
 """dfmdock_tpu_torch and chip_smoke.py import neither JAX nor the JAX package:
 every module is imported in a fresh interpreter whose import system refuses
-both."""
+both.  The modules of the PDB/ESM inputs and of training are named, so a
+module that went missing from the walk fails here too."""
 import os
 import subprocess
 import sys
@@ -25,6 +26,9 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not any(m.split(".")[0] in ("jax", "dfmdock_tpu") for m in sys.modules)
+named = {"data.pdb_io", "data.esm", "data.crop", "models.esm2", "train.losses",
+         "train.dfmdock_losses", "train.pool", "train.trainer", "cli.train"}
+assert {"dfmdock_tpu_torch." + n for n in named} <= set(names), sorted(names)
 print(len(names))
 """
 
@@ -35,4 +39,4 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 25  # every module was walked
+    assert int(r.stdout.split()[-1]) >= 48  # every module was walked

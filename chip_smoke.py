@@ -77,15 +77,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
      share); only select_topk may launch;
   9h. training, the DFMDock lineage: the same at its checkpoint's protocol
      (20 training complexes, --grad-energy), 2 epochs (80 steps);
+ 9i. dp dock: the dock CLI with --dp (torch.distributed, one NCCL rank on
+     the card) on 1AVX with the trained mlsb weights, 16 poses x 40 steps,
+     against the plain dock at the same seed: poses, energies and rows
+     bit-equal (both walls printed; every dock kernel must launch);
+ 9j. dp sweep: the sweep CLI with --dp over 1AVX and 7CEI (trained mlsb, 16
+     poses): its rows equal the plain sweep's;
+ 9k. dp training: the training CLI with --dp --batch-size 2 (one step of a
+     two-row pool of 1AVX at crop 448, one NCCL rank) against the plain CLI
+     (every weight after the step bit-equal), then make_dp_train_step
+     against train_step on the same two rows and generator seed (every
+     gradient and metric bit-equal);
+ 9l. remainder: compute_tm, kabsch (with and without weights), the 25-wide
+     pair_features and sixd_bins_dense of 1AVX on the card against the CPU
+     (1e-5, kabsch's t relative to 1 + |centroid|; bins equal but at
+     boundary ties), and the full-width
+     forward of parallel/dryrun.entry();
  10. kernel routes: 40-step samples of 16 poses under one generator seed
      through fast(), fast(select_kernel=True) and fast(edge_table_kernel=
      False).  Edge selection has one route (select_topk, ties to the lower
      index), so the select route's trajectory must equal fast()'s bit for
      bit (a gate); where the bins route's leaves it is reported.
+Phases 9i-9l run last, after the kernel table's timings (below).
 The kernel table after phase 10 gives each kernel's time by CUDA events,
 its device time (torch.profiler), its enqueue time on the host (host_ms:
 1,000 calls with no synchronize), its plain version's time and its bound.
-Each main path (phases 5, 8, 9, 9b-9e, 9g-9h and the routes of 10) runs with the
+Each main path (phases 5, 8, 9, 9b-9e, 9g-9k and the routes of 10) runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
 path that did not launch (or, on the DFMDock lineage, one that must not
 run and did) fails the run.  The last line is {"ok": true,
@@ -101,6 +118,7 @@ import glob
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -121,14 +139,19 @@ from dfmdock_tpu_torch.data.convert import load_npz_complex
 from dfmdock_tpu_torch.data.dataset import NPZDataset, batch_to_tensors, complex_to_batch
 from dfmdock_tpu_torch.data.pdb_io import save_pdb
 from dfmdock_tpu_torch.diffusion import R3Diffuser, SO3Diffuser
+from dfmdock_tpu_torch.eval.tm import compute_tm
+from dfmdock_tpu_torch.features.frames import pair_features, residue_frames
 from dfmdock_tpu_torch.features.sixd import (
     ANGLE_BOUNDARIES,
     DIST_BOUNDARIES,
     PHI_BOUNDARIES,
     SPATIAL_DIM,
+    SPATIAL_MASK_CUTOFF,
     pairwise_ca_dist,
+    sixd_bins_dense,
     sixd_values_at,
 )
+from dfmdock_tpu_torch.geom import kabsch, random_rotation_matrix
 from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
 from dfmdock_tpu_torch.models.edges import sample_gumbel, select_edges, select_y
 from dfmdock_tpu_torch.models.esm2 import ESM2, ESM2_650M, embed_sequence, tokenize
@@ -151,6 +174,9 @@ from dfmdock_tpu_torch.ops.edge_table import (
 from dfmdock_tpu_torch.ops.energy_head import fused_energy, fused_energy_plain
 from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, fused_edge_layer_plain
 from dfmdock_tpu_torch.ops.select_topk import NEG_INF, select_topk, select_topk_plain
+from dfmdock_tpu_torch.parallel import init_world
+from dfmdock_tpu_torch.parallel.dryrun import entry
+from dfmdock_tpu_torch.parallel.mesh import make_dp_train_step
 from dfmdock_tpu_torch.sampler import PicardSampler
 from dfmdock_tpu_torch.sampler.em import modify_coords, randomize_pose, step_schedule
 from dfmdock_tpu_torch.train.pool import make_training_batch, train_step, upload
@@ -293,6 +319,7 @@ DFMDOCK_METRICS = os.path.join("ckpts", "db5_holdout_dfmdock", "metrics.jsonl")
 TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-4, 1e-3, 1e-6
 TRAIN_ABSENT = ("edge_table", "fused_egcl", "fused_egcl_coord", "fused_energy", "edge_bins")
 TRAIN_PROFILE_STEPS = 20
+DP_CROP = 448  # the dp training step's crop (phase 9k)
 
 
 def log(msg):
@@ -1583,6 +1610,206 @@ def train_phase(out_root, lineage, flags, record, device):
     return steps / out["wall"], launches
 
 
+@contextlib.contextmanager
+def captured_docks():
+    """Record the results of every cli.common.dock_complex call the dock
+    CLI makes (its poses and energies, as numpy arrays)."""
+    got, orig = [], dock.dock_complex
+
+    def recording(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        got.append(out[1])
+        return out
+
+    dock.dock_complex = recording
+    try:
+        yield got
+    finally:
+        dock.dock_complex = orig
+
+
+def dp_dock_phase(out_root, smi):
+    """The dock CLI with --dp (one NCCL rank on this card) against the plain
+    dock: trained mlsb weights, 1AVX, P poses x STEPS steps, one seed.  The
+    poses, energies and every CSV row must be bit-equal; both walls are
+    printed.  The --dp run is counted and must launch every dock kernel."""
+    argv = ["--npz", NPZ, "--ckpt", DEMO_NPZ, "--num-samples", str(P), "--num-steps",
+            str(STEPS), "--seed", "7"]
+    with captured_docks() as plain:
+        rows_p, wall_p, _ = run_path("plain dock (dp reference)", DOCK_KERNELS, lambda: dock.main(
+            argv + ["--out-dir", os.path.join(out_root, "dp_ref")]))
+    with captured_docks() as dp:
+        rows_d, wall_d, launches = run_path("dp dock", DOCK_KERNELS, lambda: dock.main(
+            argv + ["--out-dir", os.path.join(out_root, "dp"), "--dp"]))
+    for k in ("pos", "energy", "num_clashes", "tr_update", "rot_update"):
+        if not np.array_equal(dp[0][k], plain[0][k]):
+            err = np.abs(dp[0][k].astype(np.float64) - plain[0][k]).max()
+            raise AssertionError(f"dp dock: {k} differs from the plain dock's (max abs {err:.3e})")
+    if rows_d != rows_p:
+        raise AssertionError("dp dock: the CSV rows differ from the plain dock's")
+    log(f"# dp dock 1AVX P={P} steps={STEPS} (NCCL, 1 rank; card {smi}): wall {wall_d:.3f} s "
+        f"against the plain dock's {wall_p:.3f} s (the --dp wall includes opening and closing "
+        f"the process group); poses, energies and rows bit-equal")
+    return launches
+
+
+def dp_sweep_phase(out_root):
+    """The sweep CLI with --dp over SWEEP_IDS (trained mlsb weights, P
+    poses each): every row equal to the plain sweep's."""
+    argv = ["--ids", ",".join(SWEEP_IDS), "--ckpt", DEMO_NPZ, "--num-samples", str(P),
+            "--num-steps", str(STEPS), "--seed", "3"]
+    plain, wall_p, _ = run_path("plain sweep (dp reference)", DOCK_KERNELS, lambda: sweep.main(
+        argv + ["--out-csv", os.path.join(out_root, "dp_ref_sweep.csv")]))
+    rows, wall_d, launches = run_path("dp sweep", DOCK_KERNELS, lambda: sweep.main(
+        argv + ["--out-csv", os.path.join(out_root, "dp_sweep.csv"), "--dp"]))
+    if rows != plain or len(rows) != P * len(SWEEP_IDS):
+        raise AssertionError(f"dp sweep: {len(rows)} rows, not equal to the plain sweep's")
+    log(f"# dp sweep {','.join(SWEEP_IDS)} P={P}: wall {wall_d:.3f} s against the plain "
+        f"sweep's {wall_p:.3f} s; {len(rows)} rows equal")
+    return launches
+
+
+def dp_train_phase(out_root, device):
+    """Data-parallel training through NCCL at one rank: the training CLI
+    with --dp --batch-size 2 (one step of a two-row pool at crop 448)
+    against the same CLI run without --dp (the saved weights bit-equal),
+    then make_dp_train_step against train_step on the same two rows and the
+    same generator seed: every gradient and metric bit-equal.  Both run
+    under torch.use_deterministic_algorithms (warn_only): the backward of
+    an embedding-table lookup may accumulate its rows in any order, and
+    then not even two plain steps agree bit for bit."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _dp_train_checks(out_root, device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _dp_train_checks(out_root, device):
+    data = os.path.join(out_root, "dp_data")
+    os.makedirs(data, exist_ok=True)
+    shutil.copy(NPZ, os.path.join(data, "1AVX.npz"))
+    argv = ["--data-dir", data, "--crop-size", str(DP_CROP), "--grad-energy",
+            "--use-contrastive-loss",
+            "--batch-size", "2", "--pool-variants", "2", "--epochs", "1", "--log-every", "1",
+            "--seed", "2"]
+    plain, wall_p, _ = run_path("plain train step (dp reference)", ("select_topk",),
+                                lambda: train.main(argv + ["--ckpt-dir", os.path.join(
+                                    out_root, "dp_ref_train")]), absent=TRAIN_ABSENT)
+    out, wall_d, launches = run_path("dp train step", ("select_topk",), lambda: train.main(
+        argv + ["--ckpt-dir", os.path.join(out_root, "dp_train"), "--dp"]), absent=TRAIN_ABSENT)
+    if out["steps"] != 1:
+        raise AssertionError(f"dp train: {out['steps']} steps, expected 1")
+    for k, v in plain["net"].state_dict().items():
+        if not torch.equal(out["net"].state_dict()[k], v):
+            raise AssertionError(f"dp train: the weight {k} after the step differs from the "
+                                 "plain step's")
+    log(f"# dp train (CLI, NCCL, 1 rank): 1 step of 2 rows at crop {DP_CROP}, wall "
+        f"{wall_d:.3f} s "
+        f"against the plain CLI's {wall_p:.3f} s; every weight after the step bit-equal")
+
+    args = train.parse_args(argv + ["--device", device.type])
+    cfg = train.experiment_config(args)
+    ds = NPZDataset(data)
+    rng = np.random.RandomState(0)
+    rows = [upload(make_training_batch(ds.load_raw(0), DP_CROP, round_up(DP_CROP), rng), device)
+            for _ in range(2)]
+    r3, so3 = R3Diffuser(cfg.diffuser.r3), SO3Diffuser(cfg.diffuser.so3)
+    nets, metrics = [], []
+    for dp in (False, True):
+        net = load_model(None, cfg, device, seed=4).train()
+        opt = make_optimizer(net, cfg.experiment)
+        gen = torch.Generator(device).manual_seed(9)
+        if dp:
+            with init_world(device) as world:
+                step = make_dp_train_step(net, r3, so3, cfg.experiment, opt,
+                                          train.LOSSES["mlsb"], world)
+                m = step({k: torch.stack([r[k] for r in rows]) for k in rows[0]}, gen,
+                         rotate=True)
+        else:
+            m = train_step(net, r3, so3, cfg.experiment, opt, train.LOSSES["mlsb"], rows, gen,
+                           rotate=True)
+        nets.append(net)
+        metrics.append(m)
+    errs = grad_errors(nets[1], nets[0])
+    worst = max(err for err, _ in errs.values())
+    if worst != 0.0:
+        raise AssertionError(f"dp train: gradients differ from the plain step's (max abs "
+                             f"{worst:.3e})")
+    for k, v in metrics[0].items():
+        if not torch.equal(metrics[1][k], v):
+            raise AssertionError(f"dp train: metric {k} differs from the plain step's")
+    log(f"# dp train step (make_dp_train_step, NCCL, 1 rank) vs train_step: {len(errs)} "
+        f"gradient arrays and {len(metrics[0])} metrics bit-equal (loss "
+        f"{float(metrics[0]['loss']):.5f})")
+    return launches
+
+
+def remainder_phase(raw, device):
+    """The remaining modules on CUDA tensors against the same functions on
+    the CPU: compute_tm (rel 1e-5), kabsch with and without weights (R
+    within 1e-5 absolute, t within 1e-5 of 1 + |centroid| in Angstrom: an
+    SVD on each side, and t = b_mean - R a_mean carries R's error times
+    the centroid's size), pair_features (rel 1e-5),
+    sixd_bins_dense on 1AVX (equal but where the CPU's angle or distance
+    lies within TIE_TOL of a bin boundary), and entry()'s full-width
+    forward (finite)."""
+    rng = np.random.RandomState(0)
+    logits = torch.from_numpy(rng.randn(120, 80, 64).astype(np.float32))
+    _, tm_err, _ = max_errs(compute_tm(logits.to(device)).cpu(), compute_tm(logits))
+    if tm_err > 1e-5:
+        raise AssertionError(f"compute_tm card vs CPU rel {tm_err:.3e}")
+    pos = torch.from_numpy(np.concatenate([raw["rec_pos"], raw["lig_pos"]]))
+    ca = pos[:, 1]
+    moved = ca @ random_rotation_matrix(torch.Generator().manual_seed(1)).T + 3.0
+    w = torch.from_numpy(rng.rand(ca.shape[0]).astype(np.float32))
+    kabsch_errs = []
+    for weights in (None, w):
+        R_c, t_c = kabsch(ca.to(device), moved.to(device),
+                          None if weights is None else weights.to(device))
+        R, t = kabsch(ca, moved, weights)
+        r_err = (R_c.cpu() - R).abs().max().item()
+        # t = b_mean - R a_mean carries R's error times the centroid's size
+        t_err = (t_c.cpu() - t).abs().max().item() / (1.0 + ca.mean(0).norm().item())
+        kabsch_errs += [r_err, t_err]
+        if r_err > 1e-5 or t_err > 1e-5:
+            raise AssertionError(f"kabsch card vs CPU: R max abs {r_err:.3e}, t max abs "
+                                 f"{t_err:.3e} of 1 + |centroid|")
+    frames = residue_frames(pos)
+    _, pf_err, _ = max_errs(pair_features(ca.to(device), frames.to(device)).cpu(),
+                            pair_features(ca, frames))
+    if pf_err > 1e-5:
+        raise AssertionError(f"pair_features card vs CPU rel {pf_err:.3e}")
+    bins_c = [b.cpu() for b in sixd_bins_dense(pos.to(device))]
+    bins = sixd_bins_dense(pos)
+    n = pos.shape[0]
+    dist, omega, theta, phi, _ = sixd_values_at(
+        pos, torch.arange(n, dtype=torch.int32).expand(n, n))
+    ties = 0
+    for name, b_c, b, v, bounds, tol in (
+            ("dist", bins_c[0], bins[0], dist, DIST_BOUNDARIES, TIE_TOL[E_DB]),
+            ("omega", bins_c[1], bins[1], omega, ANGLE_BOUNDARIES, TIE_TOL[E_OB]),
+            ("theta", bins_c[2], bins[2], theta, ANGLE_BOUNDARIES, TIE_TOL[E_TB]),
+            ("phi", bins_c[3], bins[3], phi, PHI_BOUNDARIES, TIE_TOL[E_PB])):
+        diff = b_c != b
+        near = (v[..., None] - torch.as_tensor(bounds, dtype=v.dtype)).abs().min(-1).values <= tol
+        if name != "dist":  # an angle's bin is 0 beyond the cut-off
+            near |= (dist - SPATIAL_MASK_CUTOFF).abs() <= TIE_TOL[E_DB]
+        if (diff & ~near).any():
+            raise AssertionError(f"sixd_bins_dense {name}: {int((diff & ~near).sum())} bins "
+                                 "differ card vs CPU away from a boundary")
+        ties += int(diff.sum())
+    fn, args = entry(device)
+    out = fn(*args)
+    if not all(torch.isfinite(v).all() for v in out.values()):
+        raise AssertionError("entry(): non-finite outputs")
+    log(f"# remainder card vs CPU: compute_tm rel {tm_err:.3e}, kabsch R / t "
+        f"{max(kabsch_errs[0::2]):.3e} / {max(kabsch_errs[1::2]):.3e}, "
+        f"pair_features rel {pf_err:.3e}, sixd_bins_dense over {n}x{n} pairs of 1AVX: "
+        f"{ties} bins differ, each at a boundary tie; entry() forward finite, energy "
+        f"{float(out['energy'][0]):.4f}")
+
+
 def select_topk_library(dist, y, node_mask, knn=20, sample_size=40):
     """The same selection through two torch.topk calls (ties in torch's
     order, not the lower index's): the yardstick of select_topk."""
@@ -1800,6 +2027,21 @@ def main():
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "host_ms": enqueue_ms,
         })
+    # the process-group phases run after the kernel timings, so that no
+    # process group has been opened in the process that times the kernels
+    with tempfile.TemporaryDirectory() as out_root:
+        t0 = time.perf_counter()
+        dp_dock_phase(out_root, smi)
+        log(f"# dp dock: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp_sweep_phase(out_root)
+        log(f"# dp sweep: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp_train_phase(out_root, device)
+        log(f"# dp training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    remainder_phase(raw, device)
+    log(f"# remainder: {time.perf_counter() - t0:.1f} s")
     log(f"# total {time.perf_counter() - t_start:.1f} s; card {smi}; "
         f"{steps_s:.2f} denoising steps/s (dock CLI), {sampler_steps_s:.2f} (sampler); "
         f"training steps/s at crop 448: mlsb {train_rates['mlsb']:.3f}, DFMDock "

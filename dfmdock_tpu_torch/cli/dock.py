@@ -18,9 +18,17 @@ scores (ckpts/db5_cv/reranker.md).
   python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz --rank-by reranker
   python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz \
       --ckpt ckpts/db5_demo/weights.npz --num-samples 1 --picard-iters 10
+  python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1AVX.npz --dp
+  python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1QA9.npz --dp \
+      --device cpu --world-size 2 --num-samples 4
 
 By default the EGCL stack runs through the CUDA kernels on `cuda`;
 `--exact` selects the eager float32 path and `--device cpu` the CPU.
+`--dp` splits the poses over the ranks of torch.distributed
+(parallel/mesh.py): one NCCL rank per visible GPU, or `--world-size` gloo
+ranks on the CPU (the JAX package's counterpart is
+XLA_FLAGS=--xla_force_host_platform_device_count=N); rank 0 writes every
+output, and at one rank the run is bit-equal to the plain dock.
 """
 from __future__ import annotations
 
@@ -33,9 +41,12 @@ import numpy as np
 import torch
 
 from dfmdock_tpu_torch.cli.common import (
+    add_dp_arguments,
     build_sampler,
+    check_dp_samples,
     dock_complex,
     load_model,
+    make_runner,
     resolve_device,
     write_csv,
 )
@@ -177,8 +188,12 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--exact", action="store_true",
                     help="eager float32 path (default: the CUDA kernels)")
     ap.add_argument("--device", default="cuda")
+    add_dp_arguments(ap)
     args = ap.parse_args(argv)
+    check_dp_samples(ap, args)
     if args.picard_iters > 0:
+        if args.dp:
+            ap.error("--picard-iters does not support --dp pose sharding")
         if args.integrator != "em":
             ap.error("--picard-iters is its own scheme; drop --integrator")
         # each pose holds num-steps states and every iteration runs num-steps
@@ -190,6 +205,18 @@ def main(argv=None) -> list[dict]:
                      f"throughput.")
 
     device = resolve_device(args.device)
+    if args.dp:
+        from dfmdock_tpu_torch.parallel import launch
+
+        return launch(_run, device, args.world_size, (args,))
+    return _run(None, args)
+
+
+def _run(world, args) -> list[dict]:
+    """The dock on this process's device; under --dp one rank of `world`,
+    of which rank 0 alone ranks the poses and writes."""
+    device = resolve_device(args.device) if world is None else world.device
+    main_rank = world is None or world.main
     cfg = DFMDockConfig(
         model=ModelConfig() if args.exact else ModelConfig.fast(),
         sampler=SamplerConfig(
@@ -207,24 +234,29 @@ def main(argv=None) -> list[dict]:
     if args.picard_iters > 0:
         sampler = PicardSampler(net, sampler.r3, sampler.so3, cfg.sampler,
                                 num_iters=args.picard_iters)
-    os.makedirs(args.out_dir, exist_ok=True)
+    run_fn = make_runner(sampler, args.num_samples, world)
+    if main_rank:
+        os.makedirs(args.out_dir, exist_ok=True)
 
     generator = torch.Generator(device).manual_seed(args.seed)
     all_rows = []
     for job in load_inputs(args, device):
-        rows = _dock_job(args, cfg, net, sampler, job, generator, device)
+        rows, results, (R, L) = dock_complex(
+            sampler, job, generator, args.num_samples, device,
+            native=(job["rec_pos"], job["lig_pos"]), run_fn=run_fn,
+        )
+        if main_rank:
+            _rank_and_write(args, cfg, net, job, rows, results, (R, L), device)
         all_rows.extend(rows)
-    write_csv(os.path.join(args.out_dir, args.out_csv), all_rows)
-    print(f"wrote {os.path.join(args.out_dir, args.out_csv)}")
+    if main_rank:
+        write_csv(os.path.join(args.out_dir, args.out_csv), all_rows)
+        print(f"wrote {os.path.join(args.out_dir, args.out_csv)}")
     return all_rows
 
 
-def _dock_job(args, cfg, net, sampler, job, generator, device) -> list[dict]:
-    """Dock one complex, rank its poses, write its best (or every) pose."""
-    rows, results, (R, L) = dock_complex(
-        sampler, job, generator, args.num_samples, device,
-        native=(job["rec_pos"], job["lig_pos"]),
-    )
+def _rank_and_write(args, cfg, net, job, rows, results, sizes, device):
+    """Rank one complex's docked poses and write its best (or every) pose."""
+    R, L = sizes
     if args.rank_by == "reranker":
         scores = _reranker_scores(net, job, results, rows, args.reranker_weights,
                                   args.reranker_draws, args.seed, device)

@@ -13,7 +13,9 @@ The sweep is re-entrant: complexes already in the CSV are skipped with
 --lineage picks the score network: mlsb (ScoreNet) or dfmdock (the DFMDock
 lineage, DFMDockModel).  By default the forward runs through the CUDA
 kernels on `cuda`; `--exact` selects the eager float32 path and `--device
-cpu` the CPU.  The JAX sweep's `--dp` is not ported: the parser refuses it.
+cpu` the CPU.  `--dp` splits each complex's poses over the ranks of
+torch.distributed (one NCCL rank per visible GPU, or `--world-size` gloo
+ranks on the CPU); rank 0 writes the CSV and the PDBs.
 """
 from __future__ import annotations
 
@@ -25,9 +27,12 @@ import numpy as np
 import torch
 
 from dfmdock_tpu_torch.cli.common import (
+    add_dp_arguments,
     build_sampler,
+    check_dp_samples,
     dock_complex,
     load_model,
+    make_runner,
     resolve_device,
 )
 from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
@@ -77,7 +82,9 @@ def main(argv=None) -> list[dict]:
                     help="eager float32 path (default: the CUDA kernels)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    add_dp_arguments(ap)
     args = ap.parse_args(argv)
+    check_dp_samples(ap, args)
     if args.lineage == "dfmdock" and args.energy_draws > 1:
         # the JAX sweep's ranking draws read out["ires"], which the DFMDock
         # lineage does not return (it returns "ires_logits"): that
@@ -87,6 +94,21 @@ def main(argv=None) -> list[dict]:
                  "name ('ires'), which the DFMDock lineage does not return")
 
     device = resolve_device(args.device)
+    if args.dp:
+        from dfmdock_tpu_torch.parallel import launch
+
+        return launch(_run, device, args.world_size, (args,))
+    return _run(None, args)
+
+
+def _run(world, args) -> list[dict]:
+    """The sweep on this process's device; under --dp one rank of `world`.
+    Every rank walks the same complexes and makes the same shared draws
+    (start poses, the ground-truth probe, pose 0's trajectory run), so the
+    generator seeded by --seed stays alike on every rank; rank 0 alone
+    scores the ranking draws and writes."""
+    device = resolve_device(args.device) if world is None else world.device
+    main_rank = world is None or world.main
     cfg = DFMDockConfig(
         model=ModelConfig() if args.exact else ModelConfig.fast(),
         sampler=SamplerConfig(
@@ -100,6 +122,7 @@ def main(argv=None) -> list[dict]:
     )
     net = load_model(args.ckpt, cfg, device, lineage=args.lineage)
     sampler = build_sampler(net, cfg)
+    run_fn = make_runner(sampler, args.num_samples, world)
     ds = NPZDataset(args.data_dir)
     # --ids filters the whole dataset; --limit truncates afterwards
     ids = ds.ids
@@ -139,9 +162,9 @@ def main(argv=None) -> list[dict]:
             pad_to = round_up(n, args.bucket)
             recs, results, (R, L) = dock_complex(
                 sampler, raw, generator, args.num_samples, device, native=native,
-                pad_to=pad_to,
+                pad_to=pad_to, run_fn=run_fn,
             )
-            if args.energy_draws > 1:
+            if args.energy_draws > 1 and main_rank:
                 e = _multi_draw_scores(net, raw, results["pos"], pad_to,
                                        args.energy_draws, args.seed, device,
                                        t_eval=cfg.sampler.eps)["energy"]
@@ -150,7 +173,7 @@ def main(argv=None) -> list[dict]:
                     r["energy"] = float(e[i])
             rows.extend(recs)
             pos = results["pos"]
-            if args.out_pdb_dir:
+            if args.out_pdb_dir and main_rank:
                 os.makedirs(args.out_pdb_dir, exist_ok=True)
                 for i in range(args.num_samples):
                     coords = np.concatenate([pos[i, :R], pos[i, R : R + L]])
@@ -163,14 +186,17 @@ def main(argv=None) -> list[dict]:
                 batch = batch_to_tensors(complex_to_batch(raw), device)
                 one = sampler.sample(batch, 1, generator, record_trajectory=True)
                 traj = one["trajectory"][0].cpu().numpy()
-                save_trajectory(os.path.join(args.out_trj_dir, f"{cid}_p0.pdb"),
-                                [t[:R] for t in traj], [t[R : R + L] for t in traj],
-                                raw["rec_seq"], raw["lig_seq"])
-        print(f"[{n_done + 1}/{len(ids)}] {cid} done")
-        _write(args.out_csv, rows)
+                if main_rank:
+                    save_trajectory(os.path.join(args.out_trj_dir, f"{cid}_p0.pdb"),
+                                    [t[:R] for t in traj], [t[R : R + L] for t in traj],
+                                    raw["rec_seq"], raw["lig_seq"])
+        if main_rank:
+            print(f"[{n_done + 1}/{len(ids)}] {cid} done")
+            _write(args.out_csv, rows)
 
-    _write(args.out_csv, rows)
-    print(f"wrote {args.out_csv} ({len(rows)} rows)")
+    if main_rank:
+        _write(args.out_csv, rows)
+        print(f"wrote {args.out_csv} ({len(rows)} rows)")
     return rows
 
 

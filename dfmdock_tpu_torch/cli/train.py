@@ -12,7 +12,12 @@ kernel on the card, as in every forward.
   python -m dfmdock_tpu_torch.cli.train --lineage dfmdock --grad-energy \\
       --exclude-ids 1QA9,7CEI,2SIC,1JPS --ckpt-dir /tmp/dfm --device cpu
 
-`--batch-size B` averages the gradients of B complexes a step.  The
+`--batch-size B` averages the gradients of B complexes a step.  `--dp`
+splits those B rows over the ranks of torch.distributed (one NCCL rank per
+visible GPU, or `--world-size` gloo ranks on the CPU): each rank
+backpropagates its rows and the gradients are averaged by one all_reduce
+before the optimizer step (parallel/mesh.py); rank 0 alone logs and saves.
+The
 checkpoint is `CKPT_DIR/weights.npz` (params.py's flat format, which the
 dock's and sweep's `--ckpt` read; `--resume` takes one, or a committed
 `ckpts/*/weights.npz`), with `CKPT_DIR/config.yaml` as the JAX package
@@ -28,7 +33,12 @@ import time
 import numpy as np
 import torch
 
-from dfmdock_tpu_torch.cli.common import load_model, resolve_device
+from dfmdock_tpu_torch.cli.common import (
+    add_dp_arguments,
+    dp_world_size,
+    load_model,
+    resolve_device,
+)
 from dfmdock_tpu_torch.config import DFMDockConfig, ExperimentConfig, ModelConfig, to_yaml
 from dfmdock_tpu_torch.data.batching import round_up
 from dfmdock_tpu_torch.data.dataset import NPZDataset
@@ -88,9 +98,10 @@ def parse_args(argv=None):
     ap.add_argument("--batch-size", type=int, default=1,
                     help="complexes per optimizer step (gradient mean; pool path "
                          "only; pool rows = complexes * variants must divide)")
-    ap.add_argument("--dp", action="store_true",
-                    help="data-parallel over every GPU: not ported yet (ROADMAP Queue 1, "
-                         "multi-GPU) and refused")
+    add_dp_arguments(ap, "data-parallel: split each step's --batch-size rows over the "
+                         "ranks of torch.distributed (one NCCL rank per visible GPU, or "
+                         "--world-size gloo ranks on the CPU) and average the gradients "
+                         "over them; the pool path only")
     ap.add_argument("--no-pool", action="store_true",
                     help="featurize each step on the host instead of the device-resident "
                          "pool (for corpora larger than device memory)")
@@ -127,8 +138,15 @@ def parse_args(argv=None):
     ap.add_argument("--metrics-json", default=None, help="append per-log-step JSONL here")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.dp:
-        ap.error("--dp: multi-GPU training is not ported yet (ROADMAP Queue 1, multi-GPU)")
+    ndev = dp_world_size(ap, args)
+    if ndev is not None:
+        if args.no_pool:
+            ap.error("--dp shards the pool path's steps; drop --no-pool")
+        # batch_size 1 would leave every rank but one without a row
+        if not (args.batch_size > 1 and args.batch_size % ndev == 0):
+            ap.error(f"--dp requires --batch-size to be a multiple of the {ndev} "
+                     f"devices (>1); got {args.batch_size}, whose path is single-device "
+                     "-- drop --dp or raise --batch-size")
     if args.compute_dtype != "float32":
         ap.error("--compute-dtype bfloat16: the port trains in float32 only; bf16 "
                  "training is a remaining item (ROADMAP Queue 1)")
@@ -162,15 +180,31 @@ def main(argv=None) -> dict:
     rows, "steps": optimizer steps, "wall": seconds in the training loop}."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if args.dp:
+        from dfmdock_tpu_torch.parallel import launch
+
+        return launch(_train, device, args.world_size, (args,))
+    return _train(None, args)
+
+
+def _train(world, args) -> dict:
+    """Training on this process's device; under --dp one rank of `world`,
+    of which rank 0 alone logs and saves."""
+    device = resolve_device(args.device) if world is None else world.device
+    main_rank = world is None or world.main
     cfg = experiment_config(args)
     exp = cfg.experiment
     net = load_model(None, cfg, device, seed=args.seed, lineage=args.lineage)
+    say = print if main_rank else (lambda *a, **k: None)
     if args.resume:
         load(net, args.resume)
-        print(f"resumed weights from {args.resume}")
+        say(f"resumed weights from {args.resume}")
     loss = LOSSES[args.lineage]
     r3, so3 = R3Diffuser(cfg.diffuser.r3), SO3Diffuser(cfg.diffuser.so3)
-    if args.ckpt_dir:
+    if world is not None:
+        say(f"dp over {world.size} ranks ({world.device.type}), "
+            f"batch_size={args.batch_size}")
+    if args.ckpt_dir and main_rank:
         os.makedirs(args.ckpt_dir, exist_ok=True)
         to_yaml(cfg, os.path.join(args.ckpt_dir, "config.yaml"))
 
@@ -182,12 +216,12 @@ def main(argv=None) -> dict:
         if missing:
             raise ValueError(f"--exclude-ids not in dataset: {missing}")
         train_idxs = np.array([i for i in train_idxs if ds.ids[i] not in excl])
-        print(f"training on {len(train_idxs)} complexes (held out: {sorted(excl)})")
+        say(f"training on {len(train_idxs)} complexes (held out: {sorted(excl)})")
     rng = np.random.RandomState(args.seed)
     pad_to = round_up(args.crop_size)
     opt = make_optimizer(net, exp)
     generator = torch.Generator(device).manual_seed(args.seed + 1)
-    log_f = open(args.metrics_json, "a") if args.metrics_json else None
+    log_f = open(args.metrics_json, "a") if args.metrics_json and main_rank else None
     rows, it = [], 0
 
     def log_rows(metrics: dict, epoch: int):
@@ -200,14 +234,15 @@ def main(argv=None) -> dict:
             if it % args.log_every == 0:
                 m = {k: round(float(v[i]), 5) for k, v in host.items()}
                 m.update(epoch=epoch, step=it, t=round(time.time(), 1))
-                print(m)
+                say(m)
                 rows.append(m)
                 if log_f:
                     log_f.write(json.dumps(m) + "\n")
                     log_f.flush()
 
     def maybe_save(epoch):
-        if args.ckpt_dir and args.save_every and (epoch + 1) % args.save_every == 0:
+        if (main_rank and args.ckpt_dir and args.save_every
+                and (epoch + 1) % args.save_every == 0):
             save(net, os.path.join(args.ckpt_dir, f"epoch{epoch + args.save_offset}"))
 
     t0 = time.perf_counter()
@@ -227,16 +262,16 @@ def main(argv=None) -> dict:
                     pool = upload(build_pool(ds, train_idxs, args.crop_size, pad_to, rng,
                                              variants=args.pool_variants), device)
                 metrics = run_epoch(net, r3, so3, exp, opt, loss, pool, generator,
-                                    batch_size=args.batch_size)
+                                    batch_size=args.batch_size, world=world)
             log_rows(metrics, epoch)
             maybe_save(epoch)
     finally:
         if log_f:
             log_f.close()
     wall = time.perf_counter() - t0
-    if args.ckpt_dir:
+    if args.ckpt_dir and main_rank:
         save(net, args.ckpt_dir)
-    print(f"trained {it} steps in {wall:.1f} s")
+    say(f"trained {it} steps in {wall:.1f} s")
     return {"net": net, "rows": rows, "steps": it, "wall": wall}
 
 

@@ -40,10 +40,13 @@ def batch_to_tensors(batch: dict, device) -> dict:
 class NPZDataset:
     """Complex-per-file npz dataset with an id list: `test.txt` in the
     directory if present (ids without a file are dropped), else every npz
-    in name order (the DB5 layout of `data/db5_npz/`)."""
+    in name order (the DB5 layout of `data/db5_npz/`).  Indexing gives a
+    complex's padded numpy batch, its node features [ESM2 | one-hot], or
+    the one-hot alone with use_esm=False."""
 
-    def __init__(self, data_dir: str, list_file: str | None = None):
+    def __init__(self, data_dir: str, list_file: str | None = None, use_esm: bool = True):
         self.data_dir = data_dir
+        self.use_esm = use_esm
         if list_file is None:
             list_file = os.path.join(data_dir, "test.txt")
         if os.path.exists(list_file):
@@ -61,3 +64,11 @@ class NPZDataset:
         d = load_npz_complex(os.path.join(self.data_dir, self.ids[idx] + ".npz"))
         d["id"] = self.ids[idx]
         return d
+
+    def __getitem__(self, idx: int) -> dict:
+        d = self.load_raw(idx)
+        batch = complex_to_batch(d, use_esm=self.use_esm)
+        batch["id"] = d["id"]
+        batch["rec_seq"] = d["rec_seq"]
+        batch["lig_seq"] = d["lig_seq"]
+        return batch

@@ -141,6 +141,13 @@ def sixd_bins_at(pos: torch.Tensor, idx: torch.Tensor):
     return db, ob, tb, pb
 
 
+def sixd_bins_dense(pos: torch.Tensor):
+    """sixd_bins_at over every pair: pos [N, 3, 3] -> four [N, N] int32 bins."""
+    n = pos.shape[-3]
+    idx = torch.arange(n, dtype=torch.int32, device=pos.device).expand(n, n)
+    return sixd_bins_at(pos, idx)
+
+
 def spatial_embed_from_bins(w_spatial, dist_bin, omega_bin, theta_bin, phi_bin):
     """one_hot([dist|omega|theta|phi]) @ w_spatial as four row lookups.
     w_spatial: [SPATIAL_DIM, edge_dim]."""

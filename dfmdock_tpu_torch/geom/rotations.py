@@ -105,3 +105,50 @@ def random_rotation_matrix(
     """Uniform random rotations (Haar measure) from normalized Gaussian quaternions."""
     quat = torch.randn(shape + (4,), generator=generator, device=device)
     return quaternion_to_matrix(quat)
+
+
+# 6D rotation representation (Zhou et al. 2019)
+
+
+def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 6]: the first two rows of the matrix, flattened."""
+    return matrix[..., :2, :].reshape(matrix.shape[:-2] + (6,))
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """[..., 6] -> [..., 3, 3] by Gram-Schmidt."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / _norm(a1).clamp(min=_EPS)
+    a2p = a2 - (b1 * a2).sum(-1, keepdim=True) * b1
+    b2 = a2p / _norm(a2p).clamp(min=_EPS)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2)
+
+
+def kabsch(A: torch.Tensor, B: torch.Tensor, weights: torch.Tensor | None = None):
+    """Optimal rotation R and translation t aligning A onto B: R @ A.T + t ~= B.
+
+    A, B: [N, 3] paired point clouds; weights: optional [N] non-negative
+    weights (for masked or padded input).  Returns (R [3, 3], t [3]) with
+    det(R) = +1 (a reflection is corrected without a branch)."""
+    if weights is None:
+        a_mean, b_mean = A.mean(0), B.mean(0)
+        H = (A - a_mean).T @ (B - b_mean)
+    else:
+        w = weights[:, None] / weights.sum().clamp(min=_EPS)
+        a_mean, b_mean = (A * w).sum(0), (B * w).sum(0)
+        H = ((A - a_mean) * w).T @ (B - b_mean)
+    U, _, Vt = torch.linalg.svd(H)
+    d = torch.sign(torch.linalg.det(Vt.T @ U.T))
+    S = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
+    R = Vt.T @ S @ U.T
+    return R, b_mean - R @ a_mean
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., 3, 3] skew-symmetric cross-product matrices."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    return torch.stack([torch.stack([zero, -z, y], -1),
+                        torch.stack([z, zero, -x], -1),
+                        torch.stack([-y, x, zero], -1)], -2)

@@ -21,6 +21,7 @@ from dfmdock_tpu_torch.data.batching import pad_complex
 from dfmdock_tpu_torch.data.crop import crop_complex
 from dfmdock_tpu_torch.features.residues import sequence_to_onehot
 from dfmdock_tpu_torch.geom import random_rotation_matrix
+from dfmdock_tpu_torch.parallel.world import all_reduce_mean, all_reduce_mean_grads
 
 MODEL_KEYS = ("x", "pos", "node_mask", "lig_mask", "res_id", "asym_id")
 
@@ -108,30 +109,46 @@ def rotate_batch(batch: dict, generator: torch.Generator) -> dict:
 
 
 def run_epoch(net, r3, so3, exp, opt, loss_fn, pool: dict, generator: torch.Generator,
-              batch_size: int = 1) -> dict:
+              batch_size: int = 1, world=None) -> dict:
     """One epoch over the device pool: a random permutation of its rows,
     `batch_size` rows a step (their gradients averaged), each row rotated
     then passed to `loss_fn`.  Returns {metric: [steps] tensor} on the
-    device (the mean over each step's rows)."""
+    device (the mean over each step's rows).
+
+    With `world` (a parallel.World; the pool and `generator` the same on
+    every rank) each step's rows are split over the ranks in contiguous
+    blocks: a rank rotates and draws its rows from its own generator
+    (`World.rank_generator`) and the gradients and metrics are averaged
+    over the ranks (parallel.mesh)."""
     rows = pool["x"].shape[0]
     steps = rows // batch_size
     if steps * batch_size != rows:
         raise ValueError(f"pool rows {rows} must be a multiple of batch_size {batch_size}")
+    lo, hi, row_gen = 0, batch_size, generator
+    if world is not None:
+        if batch_size % world.size:
+            raise ValueError(f"batch_size {batch_size} does not split over {world.size} ranks")
+        per = batch_size // world.size
+        lo, hi = world.rank * per, (world.rank + 1) * per
+        row_gen = world.rank_generator(generator)
     perm = torch.randperm(rows, generator=generator, device=pool["x"].device)
     history = []
     for i in range(steps):
         history.append(train_step(
             net, r3, so3, exp, opt, loss_fn,
             [{k: v[perm[j : j + 1]][0] for k, v in pool.items()}  # no host sync
-             for j in range(i * batch_size, (i + 1) * batch_size)],
-            generator, rotate=True))
+             for j in range(i * batch_size + lo, i * batch_size + hi)],
+            row_gen, rotate=True, world=world))
     return {k: torch.stack([m[k] for m in history]) for k in history[0]}
 
 
-def train_step(net, r3, so3, exp, opt, loss_fn, batches: list, generator, rotate=False):
+def train_step(net, r3, so3, exp, opt, loss_fn, batches: list, generator, rotate=False,
+               world=None):
     """One optimizer step over `batches` (one padded complex each): the
     mean of their losses' gradients, one backward per complex.  Returns
-    the mean of their metrics (0-d tensors, detached)."""
+    the mean of their metrics (0-d tensors, detached).  With `world`, the
+    gradients and metrics are then averaged over the ranks, each rank
+    having passed its own rows."""
     opt.zero_grad(set_to_none=True)
     total = {}
     for batch in batches:
@@ -141,5 +158,8 @@ def train_step(net, r3, so3, exp, opt, loss_fn, batches: list, generator, rotate
         (loss / len(batches)).backward()
         for k, v in metrics.items():
             total[k] = total.get(k, 0.0) + v.detach() / len(batches)
+    if world is not None:
+        all_reduce_mean_grads(net, world)
+        total = all_reduce_mean(total, world)
     opt.step()
     return total

@@ -14,8 +14,11 @@ the 128-residue bucket):
   record's order), so seed 5 repeats the record's draws;
 - `jax-f32`: the same in float32 (the JAX sweep's --exact);
 - `port`: dfmdock_tpu_torch's sweep, --exact on the CPU, from weights.npz;
-- `port-cuda`: the same sweep through the kernels on a CUDA card (the only
-  side that needs one; without JAX installed, run this side alone).
+- `port-cuda`: the same sweep through the kernels on a CUDA card;
+- `port-exact-cuda`: the `port` side's eager float32 path on a CUDA card
+  (TF32 off): the CPU side's arithmetic in another summation order, without
+  the kernels.  The two CUDA sides need a card; without JAX installed, run
+  them alone.
 Prints one line per run and side: each complex's mean DockQ over all poses,
 its best and its min-energy pick, then the means of each side over all runs
 beside the record (eval_train.csv, made on a TPU v5e).  `--summarize DIR`
@@ -87,10 +90,17 @@ def jax_side(ids, seed, num_samples, num_steps, dtype):
     return groups_of(rows)
 
 
-def port_side(ids, seed, num_samples, num_steps, cuda):
+PORT_ROUTES = {"port": ["--device", "cpu", "--exact"], "port-cuda": ["--device", "cuda"],
+               "port-exact-cuda": ["--device", "cuda", "--exact"]}
+
+
+def port_side(ids, seed, num_samples, num_steps, side):
+    import torch
+
     from dfmdock_tpu_torch.cli import sweep
 
-    route = ["--device", "cuda"] if cuda else ["--device", "cpu", "--exact"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    route = PORT_ROUTES[side]
     with tempfile.TemporaryDirectory() as tmp:
         rows = sweep.main(["--lineage", "dfmdock", "--ckpt", os.path.join(CKPT, "weights.npz"),
                            "--data-dir", DATA, "--ids", ",".join(ids), "--num-samples",
@@ -173,8 +183,8 @@ def main(argv=None):
     if not set(ids) <= set(RECORD_ORDER):
         ap.error(f"--ids must be among {RECORD_ORDER}")
     sides = args.sides.split(",")
-    if not set(sides) <= {"jax-bf16", "jax-f32", "port", "port-cuda"}:
-        ap.error("--sides takes jax-bf16, jax-f32, port and port-cuda")
+    if not set(sides) <= {"jax-bf16", "jax-f32", *PORT_ROUTES}:
+        ap.error(f"--sides takes jax-bf16, jax-f32 and {', '.join(PORT_ROUTES)}")
     record = {k: g for k, g in record_groups().items() if k in ids}
     print(f"# JAX record (v5e): {fmt(record)}", flush=True)
     runs = {s: [] for s in sides}
@@ -182,8 +192,7 @@ def main(argv=None):
         for side in sides:
             t0 = time.perf_counter()
             if side.startswith("port"):
-                g = port_side(ids, seed, args.num_samples, args.num_steps,
-                              cuda=side == "port-cuda")
+                g = port_side(ids, seed, args.num_samples, args.num_steps, side)
             else:
                 g = jax_side(ids, seed, args.num_samples, args.num_steps,
                              {"jax-bf16": "bfloat16", "jax-f32": "float32"}[side])

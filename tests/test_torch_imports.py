@@ -1,7 +1,9 @@
 """dfmdock_tpu_torch and chip_smoke.py import neither JAX nor the JAX package:
 every module is imported in a fresh interpreter whose import system refuses
-both.  The modules of the PDB/ESM inputs and of training are named, so a
-module that went missing from the walk fails here too."""
+both.  The modules of the PDB/ESM inputs, of training, of multi-GPU runs
+and of the remainder (TM scores, frames, external corpora, logging,
+Lightning checkpoints) are named, so a module that went missing from the
+walk fails here too."""
 import os
 import subprocess
 import sys
@@ -27,7 +29,9 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not any(m.split(".")[0] in ("jax", "dfmdock_tpu") for m in sys.modules)
 named = {"data.pdb_io", "data.esm", "data.crop", "models.esm2", "train.losses",
-         "train.dfmdock_losses", "train.pool", "train.trainer", "cli.train"}
+         "train.dfmdock_losses", "train.pool", "train.trainer", "cli.train",
+         "parallel.world", "parallel.mesh", "parallel.dryrun", "eval.tm", "features.frames",
+         "data.external", "utils.logging", "utils.torch_convert"}
 assert {"dfmdock_tpu_torch." + n for n in named} <= set(names), sorted(names)
 print(len(names))
 """

@@ -12,8 +12,8 @@ can be held equal.
   JAX's gathers exact (see tests/test_torch_losses.py);
 - the IGSO3 angle sampler against its density (Kolmogorov-Smirnov);
 - the training CLI: 2 epochs on 2 small complexes, its config.yaml as JAX
-  writes it, the saved weights resumed and docked, --no-pool, and the
-  refused --dp and --compute-dtype bfloat16.
+  writes it, the saved weights resumed and docked, --no-pool, the refused
+  --compute-dtype bfloat16, and --dp's refusal of --batch-size 1.
 """
 import dataclasses
 import os
@@ -236,9 +236,12 @@ def test_dispatch_chunk_matches_jax():
 
 @pytest.mark.parametrize("flags", [["--dp"], ["--compute-dtype", "bfloat16"]])
 def test_cli_train_refuses_unported_options(flags, capsys):
+    """bfloat16 training is not ported; --dp is, and refuses the default
+    --batch-size 1 as the JAX package does (tests/test_torch_parallel.py)."""
     with pytest.raises(SystemExit):
         train.main(["--device", "cpu"] + flags)
-    assert "ROADMAP Queue 1" in capsys.readouterr().err
+    want = "--dp requires --batch-size" if flags == ["--dp"] else "ROADMAP Queue 1"
+    assert want in capsys.readouterr().err
 
 
 def test_trainer_fit_and_evaluate(tmp_path):

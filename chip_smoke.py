@@ -77,6 +77,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      share); only select_topk may launch;
   9h. training, the DFMDock lineage: the same at its checkpoint's protocol
      (20 training complexes, --grad-energy), 2 epochs (80 steps);
+  9m. bfloat16 compute on the eager route, both lineages: the training CLI
+     with --compute-dtype bfloat16 at 9g's and 9h's protocols cut to one
+     epoch (config.yaml records it; only select_topk may launch), one bf16
+     step on the card against the CPU (BF16_TRAIN_*), the 20-step window
+     of 9g/9h at bf16 (steps/s, peak memory, idle share) printed beside
+     the f32 window's, and one eager predict forward of each lineage at
+     ModelConfig(compute_dtype="bfloat16") (trained weights, injected
+     edges) on the card against the CPU (BF16_PREDICT_REL);
  9i. dp dock: the dock CLI with --dp (torch.distributed, one NCCL rank on
      the card) on 1AVX with the trained mlsb weights, 16 poses x 40 steps,
      against the plain dock at the same seed: poses, energies and rows
@@ -87,7 +95,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      two-row pool of 1AVX at crop 448, one NCCL rank) against the plain CLI
      (every weight after the step bit-equal), then make_dp_train_step
      against train_step on the same two rows and generator seed (every
-     gradient and metric bit-equal);
+     gradient and metric bit-equal); the same again at --compute-dtype
+     bfloat16;
  9l. remainder: compute_tm, kabsch (with and without weights), the 25-wide
      pair_features and sixd_bins_dense of 1AVX on the card against the CPU
      (1e-5, kabsch's t relative to 1 + |centroid|; bins equal but at
@@ -102,7 +111,7 @@ Phases 9i-9l run last, after the kernel table's timings (below).
 The kernel table after phase 10 gives each kernel's time by CUDA events,
 its device time (torch.profiler), its enqueue time on the host (host_ms:
 1,000 calls with no synchronize), its plain version's time and its bound.
-Each main path (phases 5, 8, 9, 9b-9e, 9g-9k and the routes of 10) runs with the
+Each main path (phases 5, 8, 9, 9b-9e, 9g-9k, 9m and the routes of 10) runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
 path that did not launch (or, on the DFMDock lineage, one that must not
 run and did) fails the run.  The last line is {"ok": true,
@@ -320,6 +329,23 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-4, 1e-3, 1e-6
 TRAIN_ABSENT = ("edge_table", "fused_egcl", "fused_egcl_coord", "fused_energy", "edge_bins")
 TRAIN_PROFILE_STEPS = 20
 DP_CROP = 448  # the dp training step's crop (phase 9k)
+# bfloat16 compute (phase 9m): the training CLI at 9g's and 9h's protocols
+# cut to one epoch.  One bf16 step on the card against the CPU: each side
+# rounds the same cast inputs to bf16, but the two sum the products before
+# a cast in another order, so an input that lies at a bf16 rounding tie may
+# round up on one side and down on the other, moving by one bf16 step (up to
+# 2^-8 of it).  Loss terms are held within that step; gradients within 1e-2
+# of each array's largest plus 1e-2 of the largest of all, since the
+# backward rounds each cotangent to bf16 at every cast and the second-order
+# backward again (tests/test_torch_bf16.py measures the same noise between
+# the port and the JAX package on the CPU: loss terms <= 1.7e-3, gradients
+# <= 1.2e-2 of the largest of all).  The eager predict forward at bf16 on
+# the card against the CPU, every output within one bf16 step of its
+# largest, num_clashes exact.
+BF16 = ["--compute-dtype", "bfloat16"]
+BF16_EPOCHS, BF16_LOG_EVERY = 1, 10
+BF16_TRAIN_LOSS_REL, BF16_TRAIN_GRAD_REL, BF16_TRAIN_GRAD_FLOOR = 2.0**-8, 1e-2, 1e-2
+BF16_PREDICT_REL = 2.0**-8
 
 
 def log(msg):
@@ -1458,14 +1484,17 @@ def grad_errors(net_k, net_p):
             for name, p in net_k.named_parameters()}
 
 
-def train_step_parity(label, lineage, flags, weights, device):
+def train_step_parity(label, lineage, flags, weights, device,
+                      tols=(TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR)):
     """One training step on the card against the same step on the CPU: the
     same weights, one pool row, an injected perturbation, dropout 0 and
     kNN-only edges (sample_size 0: the card selects through select_topk,
-    the CPU through its plain version); the loss terms within TRAIN_LOSS_REL
-    and every gradient within TRAIN_GRAD_REL of its array's largest (the
-    floor TRAIN_GRAD_FLOOR of the largest gradient of all, for arrays whose
-    gradient is zero by construction, such as the bias before a GraphNorm)."""
+    the CPU through its plain version); `tols` = (loss_rel, grad_rel,
+    grad_floor): the loss terms within loss_rel and every gradient within
+    grad_rel of its array's largest (the floor grad_floor of the largest
+    gradient of all, for arrays whose gradient is zero by construction,
+    such as the bias before a GraphNorm); by default the float32 ones."""
+    loss_rel, grad_rel, grad_floor = tols
     args = train.parse_args(flags + ["--device", device.type])
     cfg = train.experiment_config(args)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0,
@@ -1497,7 +1526,7 @@ def train_step_parity(label, lineage, flags, weights, device):
     for k, v in terms["cpu"].items():
         a_err, r_err, _ = max_errs(terms[device.type][k].detach().cpu(), v.detach())
         log(f"# train {label} card vs CPU {k}: {float(v):.6f} rel {r_err:.3e}")
-        if r_err > TRAIN_LOSS_REL and a_err > 1e-7:
+        if r_err > loss_rel and a_err > 1e-7:
             raise AssertionError(f"train {label}: {k} card vs CPU rel {r_err:.3e}")
     errs = grad_errors(nets[device.type], nets["cpu"])
     top = max(scale for _, scale in errs.values())
@@ -1506,18 +1535,20 @@ def train_step_parity(label, lineage, flags, weights, device):
         log(f"# train {label} card vs CPU gradient of {name}: max abs {errs[name][0]:.3e}, "
             f"rel {rel[name]:.3e} of its largest {errs[name][1]:.3e}")
     for name, (err, scale) in errs.items():
-        if err > TRAIN_GRAD_REL * scale + TRAIN_GRAD_FLOOR * top:
+        if err > grad_rel * scale + grad_floor * top:
             raise AssertionError(f"train {label}: gradient of {name} card vs CPU max abs "
                                  f"{err:.3e}, its largest {scale:.3e}")
     log(f"# train {label} card vs CPU: {len(errs)} gradient arrays within rel "
-        f"{TRAIN_GRAD_REL} of their largest or {TRAIN_GRAD_FLOOR} of the largest of all "
-        f"({top:.3e})")
+        f"{grad_rel} of their largest or {grad_floor} of the largest of all "
+        f"({top:.3e}); worst {max(err for err, _ in errs.values()) / top:.3e} of it")
 
 
 def train_profile(net, lineage, flags, device, steps=TRAIN_PROFILE_STEPS, distinct=4):
     """The device's busy and idle share over `steps` training steps of the
     trained net (fresh optimizer) on `distinct` pool rows of seed 0 in
-    turn, after one warm-up step."""
+    turn, after one warm-up step, and the peak memory of the window.
+    Returns {steps_s, idle, peak_gb, launches} (idle None where the
+    profiler recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     args = train.parse_args(flags + ["--device", device.type])
@@ -1535,6 +1566,7 @@ def train_profile(net, lineage, flags, device, steps=TRAIN_PROFILE_STEPS, distin
                                 [b], gen, rotate=True)
     step(rows[0])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:  # no host-op tracing cost
         t0 = time.perf_counter()
         for b in rows[1:]:
@@ -1545,9 +1577,13 @@ def train_profile(net, lineage, flags, device, steps=TRAIN_PROFILE_STEPS, distin
         e, "self_cuda_time_total", 0)
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    window = {"steps_s": steps / wall_ms * 1e3, "idle": None,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": sum(e.count for e in kernels) / steps}
     if busy_ms == 0:
         log(f"# train {lineage} profile: the profiler recorded no device time (not measured)")
-        return
+        return window
+    window["idle"] = 1 - busy_ms / wall_ms
     log(f"# train {lineage} profile, {steps} steps: wall {wall_ms:.1f} ms "
         f"({steps / wall_ms * 1e3:.2f} steps/s), device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
@@ -1556,6 +1592,7 @@ def train_profile(net, lineage, flags, device, steps=TRAIN_PROFILE_STEPS, distin
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"#   {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / 1e3 / busy_ms:5.1f}% "
             f"x{e.count:<6d} {e.key[:90]}")
+    return window
 
 
 def train_phase(out_root, lineage, flags, record, device):
@@ -1606,8 +1643,94 @@ def train_phase(out_root, lineage, flags, record, device):
             raise AssertionError(f"train {lineage}: the saved weights' {k} differs")
     log(f"# train {lineage}: {ck}/weights.npz loads through load_model, bit-equal to the "
         "trained model's weights and forward (kernel path)")
-    train_profile(out["net"], lineage, flags, device)
-    return steps / out["wall"], launches
+    window = train_profile(out["net"], lineage, flags, device)
+    return steps / out["wall"], launches, weights, window
+
+
+def with_flag(flags, name, value):
+    """Training flags with the value of `name` replaced."""
+    i = flags.index(name)
+    return flags[:i + 1] + [str(value)] + flags[i + 2:]
+
+
+def bf16_train_phase(out_root, lineage, flags, weights, f32_rate, f32_window, device):
+    """Training at --compute-dtype bfloat16 (the eager route's bf16 products)
+    through the CLI at `flags`' protocol cut to BF16_EPOCHS, logging every
+    BF16_LOG_EVERY steps: only select_topk launches, config.yaml records
+    the dtype, the losses are finite; one bf16 step on the card against the CPU from the f32 run's
+    trained `weights`; the 20-step window of train_profile at bf16 from
+    the same weights, printed beside the f32 window's.  Returns the bf16
+    window."""
+    ck = os.path.join(out_root, f"train_{lineage}_bf16")
+    bf_flags = with_flag(with_flag(flags, "--epochs", BF16_EPOCHS), "--log-every",
+                         BF16_LOG_EVERY) + BF16
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, launches = run_path(f"train {lineage} bf16", ("select_topk",),
+                                   lambda: train.main(bf_flags + ["--ckpt-dir", ck, "--device",
+                                                                  device.type]),
+                                   absent=TRAIN_ABSENT)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = out["steps"]
+    with open(os.path.join(ck, "config.yaml")) as f:
+        written = f.read()
+    if "compute_dtype: bfloat16" not in written:
+        raise AssertionError(f"train {lineage} bf16: config.yaml does not record bfloat16")
+    for r in out["rows"]:
+        if not all(np.isfinite(v) for k, v in r.items() if k != "t"):
+            raise AssertionError(f"train {lineage} bf16: non-finite losses at step {r['step']}")
+    if not out["rows"]:
+        raise AssertionError(f"train {lineage} bf16: no step logged")
+    log(f"# train {lineage} bf16 ({' '.join(bf_flags)}): {steps} steps, CLI wall {wall:.3f} s, "
+        f"training loop {out['wall']:.3f} s ({steps / out['wall']:.3f} steps/s; f32 "
+        f"{f32_rate:.3f} in 9g/9h, ratio {steps / out['wall'] / f32_rate:.3f}), peak memory "
+        f"{peak:.3f} GB, {launches['select_topk'] / steps:.1f} select_topk launches a step; "
+        f"last logged losses: " + " ".join(f"{k} {v:.4f}" for k, v in out["rows"][-1].items()
+                                            if k.endswith("loss")))
+    train_step_parity(f"{lineage} bf16", lineage, flags + BF16, weights, device,
+                      tols=(BF16_TRAIN_LOSS_REL, BF16_TRAIN_GRAD_REL, BF16_TRAIN_GRAD_FLOOR))
+    cfg = train.experiment_config(train.parse_args(bf_flags + ["--device", device.type]))
+    net = load_model(None, cfg, device, lineage=lineage)
+    net.load_state_dict(weights)
+    window = train_profile(net, lineage, bf_flags, device)
+    idle = lambda w: "not measured" if w["idle"] is None else f"{100 * w['idle']:.1f}%"
+    log(f"# train {lineage} {TRAIN_PROFILE_STEPS}-step window: bf16 {window['steps_s']:.3f} "
+        f"steps/s, peak {window['peak_gb']:.3f} GB, idle {idle(window)}, "
+        f"{window['launches']:.0f} launches a step; f32 {f32_window['steps_s']:.3f} steps/s, "
+        f"peak {f32_window['peak_gb']:.3f} GB, idle {idle(f32_window)}, "
+        f"{f32_window['launches']:.0f} launches a step; bf16 / f32 steps/s "
+        f"{window['steps_s'] / f32_window['steps_s']:.3f}")
+    return window
+
+
+def bf16_predict_phase(raw, device):
+    """One eager predict forward of each lineage at
+    ModelConfig(compute_dtype="bfloat16") (trained weights, phase 4's
+    inputs: injected edges, the native pose and a random one, t = 0.5) on
+    the card against the CPU: every output within BF16_PREDICT_REL of its
+    largest, num_clashes exact; no kernel launches (the edges are
+    injected, the route is eager)."""
+    batch, pos, edges, _ = parity_inputs(raw, device)
+    cfg = DFMDockConfig(model=ModelConfig(compute_dtype="bfloat16"))
+    for lineage, ckpt, outputs in (("mlsb", DEMO_NPZ, SCORE_NET_OUTPUTS),
+                                   ("dfmdock", DFMDOCK_NPZ, DFMDOCK_OUTPUTS)):
+        net_k = load_model(ckpt, cfg, device, lineage=lineage)
+        net_p = load_model(ckpt, cfg, torch.device("cpu"), lineage=lineage)
+        reset_counts()
+        with torch.no_grad():
+            o_k = net_k(batch, pos, 0.5, edges=edges)
+            o_p = net_p({k: v.cpu() for k, v in batch.items()}, pos.cpu(), 0.5,
+                        edges=tuple(e.cpu() for e in edges))
+        torch.cuda.synchronize()
+        if any(counts().values()):
+            raise AssertionError(f"bf16 predict {lineage}: kernels launched {counts()}")
+        for name in outputs:
+            a_err, r_err, _ = max_errs(o_k[name].cpu(), o_p[name])
+            log(f"# bf16 predict {lineage} (eager) card vs CPU {name}: max abs {a_err:.3e} "
+                f"rel {r_err:.3e}")
+            if r_err > BF16_PREDICT_REL or not torch.isfinite(o_k[name]).all():
+                raise AssertionError(f"bf16 predict {lineage}: {name} rel {r_err:.3e}")
+        if not torch.equal(o_k["num_clashes"].cpu(), o_p["num_clashes"]):
+            raise AssertionError(f"bf16 predict {lineage}: num_clashes differ")
 
 
 @contextlib.contextmanager
@@ -1669,34 +1792,37 @@ def dp_sweep_phase(out_root):
     return launches
 
 
-def dp_train_phase(out_root, device):
+def dp_train_phase(out_root, device, extra=()):
     """Data-parallel training through NCCL at one rank: the training CLI
     with --dp --batch-size 2 (one step of a two-row pool at crop 448)
     against the same CLI run without --dp (the saved weights bit-equal),
     then make_dp_train_step against train_step on the same two rows and the
-    same generator seed: every gradient and metric bit-equal.  Both run
+    same generator seed: every gradient and metric bit-equal; `extra` adds
+    training flags to both (--compute-dtype bfloat16).  Both run
     under torch.use_deterministic_algorithms (warn_only): the backward of
     an embedding-table lookup may accumulate its rows in any order, and
     then not even two plain steps agree bit for bit."""
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        return _dp_train_checks(out_root, device)
+        return _dp_train_checks(out_root, device, list(extra))
     finally:
         torch.use_deterministic_algorithms(False)
 
 
-def _dp_train_checks(out_root, device):
+def _dp_train_checks(out_root, device, extra):
     data = os.path.join(out_root, "dp_data")
     os.makedirs(data, exist_ok=True)
     shutil.copy(NPZ, os.path.join(data, "1AVX.npz"))
+    tag = "".join(f"{a} " for a in extra)
+    out_root = os.path.join(out_root, "_".join(["dp"] + [a.strip("-") for a in extra]))
     argv = ["--data-dir", data, "--crop-size", str(DP_CROP), "--grad-energy",
             "--use-contrastive-loss",
             "--batch-size", "2", "--pool-variants", "2", "--epochs", "1", "--log-every", "1",
-            "--seed", "2"]
-    plain, wall_p, _ = run_path("plain train step (dp reference)", ("select_topk",),
+            "--seed", "2"] + extra
+    plain, wall_p, _ = run_path(f"plain train step {tag}(dp reference)", ("select_topk",),
                                 lambda: train.main(argv + ["--ckpt-dir", os.path.join(
                                     out_root, "dp_ref_train")]), absent=TRAIN_ABSENT)
-    out, wall_d, launches = run_path("dp train step", ("select_topk",), lambda: train.main(
+    out, wall_d, launches = run_path(f"dp train step {tag}", ("select_topk",), lambda: train.main(
         argv + ["--ckpt-dir", os.path.join(out_root, "dp_train"), "--dp"]), absent=TRAIN_ABSENT)
     if out["steps"] != 1:
         raise AssertionError(f"dp train: {out['steps']} steps, expected 1")
@@ -1704,7 +1830,7 @@ def _dp_train_checks(out_root, device):
         if not torch.equal(out["net"].state_dict()[k], v):
             raise AssertionError(f"dp train: the weight {k} after the step differs from the "
                                  "plain step's")
-    log(f"# dp train (CLI, NCCL, 1 rank): 1 step of 2 rows at crop {DP_CROP}, wall "
+    log(f"# dp train {tag}(CLI, NCCL, 1 rank): 1 step of 2 rows at crop {DP_CROP}, wall "
         f"{wall_d:.3f} s "
         f"against the plain CLI's {wall_p:.3f} s; every weight after the step bit-equal")
 
@@ -1739,7 +1865,7 @@ def _dp_train_checks(out_root, device):
     for k, v in metrics[0].items():
         if not torch.equal(metrics[1][k], v):
             raise AssertionError(f"dp train: metric {k} differs from the plain step's")
-    log(f"# dp train step (make_dp_train_step, NCCL, 1 rank) vs train_step: {len(errs)} "
+    log(f"# dp train step {tag}(make_dp_train_step, NCCL, 1 rank) vs train_step: {len(errs)} "
         f"gradient arrays and {len(metrics[0])} metrics bit-equal (loss "
         f"{float(metrics[0]['loss']):.5f})")
     return launches
@@ -1960,12 +2086,20 @@ def main():
         t0 = time.perf_counter()
         esm_phase(device)
         log(f"# ESM2-650M: {time.perf_counter() - t0:.1f} s")
-        train_rates = {}
+        train_rates, bf16_windows = {}, {}
         for lineage, flags, record in (("mlsb", MLSB_TRAIN_FLAGS, DEMO_METRICS),
                                        ("dfmdock", DFMDOCK_TRAIN_FLAGS, DFMDOCK_METRICS)):
             t0 = time.perf_counter()
-            train_rates[lineage], _ = train_phase(out_root, lineage, flags, record, device)
+            train_rates[lineage], _, weights, window = train_phase(out_root, lineage, flags,
+                                                                   record, device)
             log(f"# training {lineage}: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            bf16_windows[lineage] = bf16_train_phase(out_root, lineage, flags, weights,
+                                                     train_rates[lineage], window, device)
+            log(f"# training {lineage} at bf16: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bf16_predict_phase(raw, device)
+        log(f"# bf16 eager predict: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     route_launches = route_phase(raw, device)
     log(f"# kernel routes: {time.perf_counter() - t0:.1f} s")
@@ -2038,14 +2172,16 @@ def main():
         log(f"# dp sweep: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         dp_train_phase(out_root, device)
-        log(f"# dp training: {time.perf_counter() - t0:.1f} s")
+        dp_train_phase(out_root, device, BF16)
+        log(f"# dp training (f32, bf16): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     remainder_phase(raw, device)
     log(f"# remainder: {time.perf_counter() - t0:.1f} s")
     log(f"# total {time.perf_counter() - t_start:.1f} s; card {smi}; "
         f"{steps_s:.2f} denoising steps/s (dock CLI), {sampler_steps_s:.2f} (sampler); "
         f"training steps/s at crop 448: mlsb {train_rates['mlsb']:.3f}, DFMDock "
-        f"{train_rates['dfmdock']:.3f}")
+        f"{train_rates['dfmdock']:.3f}; bf16 in the 20-step window: mlsb "
+        f"{bf16_windows['mlsb']['steps_s']:.3f}, DFMDock {bf16_windows['dfmdock']['steps_s']:.3f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,11 @@ By default the training set is featurized once into a pool that lives on
 the device (train/pool.py); each epoch loops over a permutation of its rows,
 rotating each on the device.  `--no-pool` featurizes every step on the host
 instead (for corpora larger than device memory).  Training runs the eager
-float32 path with autograd; edge selection goes through the select_topk
-kernel on the card, as in every forward.
+path with autograd, in float32 or, with `--compute-dtype bfloat16`, with
+the JAX package's bf16 products (each Linear of the node embedding, the
+EGNN and the mlsb energy head takes bf16 inputs and a float32 result); edge
+selection goes through the select_topk kernel on the card, as in every
+forward.
 
   python -m dfmdock_tpu_torch.cli.train --data-dir data/db5_npz --lineage mlsb \\
       --epochs 2 --crop-size 448 --ckpt-dir ckpts/run0
@@ -91,8 +94,8 @@ def parse_args(argv=None):
     ap.add_argument("--no-interface-loss", action="store_true",
                     help="disable the interface BCE term")
     ap.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32",
-                    help="training compute dtype; bfloat16 is not ported yet (ROADMAP "
-                         "Queue 1) and is refused")
+                    help="training compute dtype: bfloat16 casts each Linear's inputs "
+                         "to bf16 with a float32 result, as the JAX package does")
     ap.add_argument("--exclude-ids", default=None,
                     help="comma-separated complex ids to HOLD OUT from training")
     ap.add_argument("--batch-size", type=int, default=1,
@@ -147,9 +150,6 @@ def parse_args(argv=None):
             ap.error(f"--dp requires --batch-size to be a multiple of the {ndev} "
                      f"devices (>1); got {args.batch_size}, whose path is single-device "
                      "-- drop --dp or raise --batch-size")
-    if args.compute_dtype != "float32":
-        ap.error("--compute-dtype bfloat16: the port trains in float32 only; bf16 "
-                 "training is a remaining item (ROADMAP Queue 1)")
     if args.no_pool and args.batch_size != 1:
         ap.error("--batch-size applies to the pool path only")
     return args

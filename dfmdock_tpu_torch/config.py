@@ -27,8 +27,13 @@ class ModelConfig:
     # Edge selection: 20 nearest neighbours (self included) + 40 samples by 1/d^3.
     knn: int = 20
     sample_size: int = 40
-    # Kept for equality with the JAX config.  The port computes in float32
-    # whatever this says: its kernels are float32 in this release.
+    # "bfloat16": each cast Linear rounds its input and weight to bf16 and
+    # multiplies with a float32 result, as the JAX package's
+    # modules.linear(dtype) (models/modules.linear, compute_dtype).  The
+    # training forward (apply_train) always honours it; the predict forward
+    # and embed_nodes honour it on the eager route (use_pallas False); the
+    # kernel route computes in float32.  fast() keeps "bfloat16" for
+    # field-for-field equality with the JAX config; its numbers do not change.
     compute_dtype: str = "float32"
     # Inference path through the hand-written CUDA kernels (ops/edge_table.py,
     # ops/fused_egcl.py, ops/energy_head.py).  Off = the eager float32 path

@@ -4,8 +4,9 @@ Mirrors `dfmdock_tpu/models/egnn.py`: every node owns K neighbour slots, so
 messages are [P, N, K, C] tensors and aggregation is a masked sum over K.
 Two forward paths share the parameters:
 
-- `egnn_apply`: the eager float32 formulation (`--exact`), against which
-  the kernels are held;
+- `egnn_apply`: the eager formulation (`--exact`, and training), in float32
+  or with the JAX package's bf16 products (`dtype`), against which the
+  kernels are held;
 - `egnn_apply_fused`: the inference path through `ops/fused_egcl`, which
   reads the per-step edge table of `ops/edge_table` (built by the edge_table
   kernel, or by `build_edge_table_unfused` with that kernel off).
@@ -18,7 +19,7 @@ from torch import nn
 
 from dfmdock_tpu_torch.features.positional import relpos_bin_at
 from dfmdock_tpu_torch.features.sixd import gather_rows, sixd_bins_at, spatial_embed_from_bins
-from dfmdock_tpu_torch.models.modules import GraphNorm
+from dfmdock_tpu_torch.models.modules import GraphNorm, linear
 from dfmdock_tpu_torch.ops.edge_table import build_edge_table, edge_bins, edge_geometry
 from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer
 
@@ -52,16 +53,19 @@ class EGCL(nn.Module):
         w0 = self.edge_mlp["l0"].weight.t()
         return w0[:c], w0[c : 2 * c], w0[2 * c], w0[2 * c + 1 :]
 
-    def node_update(self, h, agg_m, node_mask):
-        o = self.node_mlp["l0"](torch.cat([h, agg_m], -1))
+    def node_update(self, h, agg_m, node_mask, dtype=None):
+        l0, l1 = self.node_mlp["l0"], self.node_mlp["l1"]
+        o = linear(torch.cat([h, agg_m], -1), l0.weight, l0.bias, dtype)
         o = self.node_mlp["gn"](o, node_mask)
-        return h + self.node_mlp["l1"](F.silu(o))
+        return h + linear(F.silu(o), l1.weight, l1.bias, dtype)
 
     def forward(self, h, coord, idx, edge_mask, edge_attr, node_mask, lig_mask,
-                *, normalize: bool, coord_clamp: float = 2.0):
+                *, normalize: bool, coord_clamp: float = 2.0, dtype=None):
         """Eager E_GCL.  h [P, N, C], coord [P, N, 3], idx / edge_mask
         [P, N, K], edge_attr [P, N, K, E], node_mask [N] bool, lig_mask [N]
-        float.  Returns (h', coord')."""
+        float.  `dtype` (bfloat16) casts the products the JAX package's
+        `egcl_apply` casts (`modules.linear`); the radial row and the coord
+        MLP's last Linear stay float32, as there.  Returns (h', coord')."""
         coord_diff = coord[..., :, None, :] - gather_rows(coord, idx.long())
         radial = (coord_diff * coord_diff).sum(-1, keepdim=True)
         if normalize:
@@ -70,32 +74,34 @@ class EGCL(nn.Module):
         # the first Linear over concat[h_i, h_j, radial, e_attr], split by
         # weight rows so the [.., 2C+1+E] concat never materializes
         w_hi, w_hj, w_r, w_e = self.edge_weights()
+        l1, att = self.edge_mlp["l1"], self.att_mlp["l0"]
         pre = (
-            (h @ w_hi)[..., :, None, :]
-            + gather_rows(h @ w_hj, idx.long())
+            linear(h, w_hi.t(), dtype=dtype)[..., :, None, :]
+            + gather_rows(linear(h, w_hj.t(), dtype=dtype), idx.long())
             + radial * w_r
-            + edge_attr @ w_e
+            + linear(edge_attr, w_e.t(), dtype=dtype)
             + self.edge_mlp["l0"].bias
         )
-        m = F.silu(self.edge_mlp["l1"](F.silu(pre)))
-        m = m * torch.sigmoid(self.att_mlp["l0"](m))
+        m = F.silu(linear(F.silu(pre), l1.weight, l1.bias, dtype))
+        m = m * torch.sigmoid(linear(m, att.weight, att.bias, dtype))
         m = m * edge_mask[..., None]
 
         new_coord = coord
         if self.coord_mlp is not None:
-            w = self.coord_mlp["l1"](F.silu(self.coord_mlp["l0"](m)))
+            c0 = self.coord_mlp["l0"]
+            w = self.coord_mlp["l1"](F.silu(linear(m, c0.weight, c0.bias, dtype)))
             w = w.clamp(-coord_clamp, coord_clamp)
             trans = coord_diff * w * edge_mask[..., None]
             count = edge_mask.sum(-1, keepdim=True).clamp(min=1.0)
             new_coord = coord + (trans.sum(-2) / count) * lig_mask[:, None]
-        return self.node_update(h, m.sum(-2), node_mask), new_coord
+        return self.node_update(h, m.sum(-2), node_mask, dtype), new_coord
 
 
 def egnn_apply(layers, h, coord, idx, edge_mask, edge_attr, node_mask, lig_mask, *,
-               normalize: bool):
+               normalize: bool, dtype=None):
     for layer in layers:
         h, coord = layer(h, coord, idx, edge_mask, edge_attr, node_mask, lig_mask,
-                         normalize=normalize)
+                         normalize=normalize, dtype=dtype)
     return h, coord
 
 
@@ -108,12 +114,13 @@ def build_edge_table_unfused(idx, pos, res_id, asym_id, *, normalize: bool):
 
 
 def edge_stack(c, layers, spatial_w, positional_w, batch, pos, h, idx, edge_mask,
-               lig_valid, fused: bool | None = None):
+               lig_valid, fused: bool | None = None, dtype=None):
     """The EGCL stack of a score network over the selected edges, on the
     route its config `c` names: the edge table (`c.edge_table_kernel`: one
     kernel, else its bins-only mode and torch geometry) and ops/fused_egcl
-    with `c.use_pallas` (or `fused`, where given), else the eager float32
-    layers (training takes these: the kernels are inference-only).  layers: the EGCL
+    with `c.use_pallas` (or `fused`, where given), in float32; else the
+    eager layers, their products cast to `dtype` where given (training
+    takes these: the kernels are inference-only).  layers: the EGCL
     modules; spatial_w [100, E] / positional_w [66, E]: the embed tables.
     pos [P, N, 3, 3], h [P, N, C] -> (h, CA coordinates after the stack)."""
     node_mask = batch["node_mask"]
@@ -128,7 +135,7 @@ def edge_stack(c, layers, spatial_w, positional_w, batch, pos, h, idx, edge_mask
     db, ob, tb, pb = sixd_bins_at(pos.detach(), idx)
     edge_attr = spatial_embed_from_bins(spatial_w, db, ob, tb, pb) + positional_w[rp.long()]
     return egnn_apply(layers, h, ca, idx, edge_mask, edge_attr, node_mask, lig_valid,
-                      normalize=c.normalize)
+                      normalize=c.normalize, dtype=dtype)
 
 
 def egnn_apply_fused(layers, spatial_w, positional_w, h, coord, idx, edge_mask,

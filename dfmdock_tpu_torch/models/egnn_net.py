@@ -26,7 +26,10 @@ The net does not centre its input; `dfmdock.DFMDockModel` does.
 
 `apply_train` is the training forward (the JAX package's `apply(train=True)`
 with `_core`'s scan over all N rows, masked to receptor x ligand pairs):
-eager float32, dropout in the scale MLPs, the pair heads and the distogram
+eager, the node embedding and the EGNN's products cast as
+`cfg.compute_dtype` says (the pair heads stay float32, as in the JAX
+package; the predict forward casts alike on the eager route), dropout in
+the scale MLPs, the pair heads and the distogram
 loss in checkpointed row chunks, and dedx = -dE/dpos through the explicit
 chain rule of `ScoreNet.apply_train`.
 """
@@ -45,7 +48,9 @@ from dfmdock_tpu_torch.models.egnn import EGCL, edge_stack
 from dfmdock_tpu_torch.models.modules import (
     LN_EPS,
     TimeEmbed,
+    compute_dtype,
     init_weights,
+    linear,
     pair_energy_rows,
 )
 from dfmdock_tpu_torch.models.score_net import ScaleMLP, pose_scores
@@ -101,9 +106,11 @@ class EGNNNet(nn.Module):
         init_weights(self, generator)
         return self
 
-    def embed_nodes(self, x: torch.Tensor) -> torch.Tensor:
-        """h0 = single_embed(x); the sampler hoists it (batch['h0'])."""
-        return self.single_embed(x)
+    def embed_nodes(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """h0 = single_embed(x); the sampler hoists it (batch['h0']).  Its
+        product is cast as the predict (or with `train` the training)
+        forward's (`compute_dtype`)."""
+        return linear(x, self.single_embed.weight, dtype=compute_dtype(self.cfg, train))
 
     def forward(self, batch: dict, pos: torch.Tensor, t, *, generator=None,
                 gumbel=None, edges=None, scores_only: bool = False) -> dict:
@@ -133,7 +140,7 @@ class EGNNNet(nn.Module):
         idx, edge_mask = edges
         h, _ = edge_stack(
             c, self.egnn, self.spatial_embed.weight.t(), self.positional_embed.weight.t(),
-            batch, pos, h, idx, edge_mask, lig_valid)
+            batch, pos, h, idx, edge_mask, lig_valid, dtype=compute_dtype(c))
 
         heads = self._pair_heads(h, ca, dist, rec_valid > 0, lig_valid > 0, scores_only)
         if c.agg == "mean":
@@ -171,7 +178,7 @@ class EGNNNet(nn.Module):
         p, n = pos.shape[:2]
         if dedx:
             pos = pos.detach().requires_grad_(True)
-        h = self.embed_nodes(batch["x"]).expand(p, n, -1)
+        h = self.embed_nodes(batch["x"], train=True).expand(p, n, -1)
         ca = pos[..., 1, :]
         dist = pairwise_ca_dist(pos).detach()
         if edges is None:
@@ -180,7 +187,8 @@ class EGNNNet(nn.Module):
         idx, edge_mask = edges
         h, _ = edge_stack(
             c, self.egnn, self.spatial_embed.weight.t(), self.positional_embed.weight.t(),
-            batch, pos, h, idx, edge_mask, lig_valid, fused=False)
+            batch, pos, h, idx, edge_mask, lig_valid, fused=False,
+            dtype=compute_dtype(c, train=True))
 
         pair_valid = rec_valid[:, None] * lig_valid[None, :]
         energy_mask = pair_valid * (dist < c.cut_off)

@@ -10,9 +10,41 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-5  # torch nn.LayerNorm / PyG GraphNorm default
+
+
+def compute_dtype(cfg, train: bool = False) -> torch.dtype | None:
+    """The dtype a net's cast products take (`linear`'s `dtype`):
+    bfloat16 when `cfg.compute_dtype` says so, on the training forward
+    always and on the predict forward on the eager route only (the kernel
+    route, `cfg.use_pallas`, computes in float32); else None (float32)."""
+    if cfg.compute_dtype == "float32" or (cfg.use_pallas and not train):
+        return None
+    return getattr(torch, cfg.compute_dtype)
+
+
+def linear(x, weight, bias=None, dtype=None):
+    """x W^T (+ bias) for a weight [out, in] in nn.Linear's layout; the JAX
+    package's `modules.linear(p, x, dtype)`.  Without `dtype`, nn.Linear's
+    float32 product.  With `dtype` (bfloat16), x and W are rounded to it
+    and multiplied with a float32 result, and the float32 bias is added
+    after: JAX's `preferred_element_type=float32` product.  The product of
+    two bf16 values is exact in float32, so the float32 GEMM on the rounded
+    values rounds only in its accumulation.  Autograd rounds the gradients
+    with respect to x and W to the dtype at the casts, as JAX's transpose
+    of the cast does, so the backward and a second-order backward match
+    JAX's.  This cast form runs on the card too (TF32 off, torch's
+    default): the bf16 GEMM with a float32 output (`torch.mm(...,
+    out_dtype=)`) has no derivative there, and
+    `allow_bf16_reduced_precision_reduction` changes neither form's result
+    (scripts/torch_bf16_linear_probe.py)."""
+    if dtype is None:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dtype).float(), weight.to(dtype).float())
+    return y if bias is None else y + bias
 
 
 class GraphNorm(nn.Module):
@@ -65,7 +97,7 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
 
 
 def pair_energy_rows(hr_c, hl, mask_c, ln_g, ln_b, w2, d_c=None, w_d=None,
-                     with_grads: bool = False):
+                     with_grads: bool = False, dtype=None):
     """One row chunk of a pair energy head's masked sum,
     num = sum_ij m_ij w2 . silu(LN(hr_i + hl_j [+ d_ij w_d])),
     and with `with_grads` its gradients with respect to hr_c, hl (and d_c),
@@ -74,7 +106,9 @@ def pair_energy_rows(hr_c, hl, mask_c, ln_g, ln_b, w2, d_c=None, w_d=None,
     plain operations.
 
     hr_c [..., c, C] the chunk's rows, hl [..., N, C], mask_c [..., c, N],
-    d_c [..., c, N]; ln_g, ln_b, w2, w_d [C].  Returns num [...] or
+    d_c [..., c, N]; ln_g, ln_b, w2, w_d [C].  `dtype` (bfloat16) casts the
+    last product as `linear` does, so the gradients use the rounded w2, as
+    the JAX package's gradient of its cast product does.  Returns num [...] or
     (num, d num / d hr_c [..., c, C], d num / d hl [..., N, C],
     d num / d d_c [..., c, N] or None)."""
     x = hr_c[..., :, None, :] + hl[..., None, :, :]
@@ -85,7 +119,10 @@ def pair_energy_rows(hr_c, hl, mask_c, ln_g, ln_b, w2, d_c=None, w_d=None,
     xhat = xc * rstd
     y = xhat * ln_g + ln_b
     sig = torch.sigmoid(y)
-    num = ((y * sig) @ w2 * mask_c).sum((-2, -1))
+    silu = y * sig
+    if dtype is not None:
+        silu, w2 = silu.to(dtype).float(), w2.to(dtype).float()
+    num = (silu @ w2 * mask_c).sum((-2, -1))
     if not with_grads:
         return num
     g_xhat = (mask_c[..., None] * w2) * (sig * (1.0 + y * (1.0 - sig))) * ln_g

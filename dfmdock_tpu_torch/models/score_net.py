@@ -13,7 +13,9 @@ Edge selection goes through ops/select_topk on every path.  With
 `cfg.use_pallas` the rest of the forward runs through the CUDA kernels: the
 edge table (ops/edge_table: the whole table, or with `edge_table_kernel`
 off its bins alone), the EGCL stack (ops/fused_egcl) and the energy head
-(ops/energy_head); otherwise through the eager float32 path.
+(ops/energy_head), in float32; otherwise through the eager path, whose
+products `cfg.compute_dtype` "bfloat16" casts as the JAX package does
+(`modules.compute_dtype`, `modules.linear`).
 
 Batch (tensors on the model's device): h0 [N, C] or x [N, F], node_mask [N]
 bool, lig_mask [N] f32, res_id / asym_id [N] int32.
@@ -34,8 +36,10 @@ from dfmdock_tpu_torch.models.egnn import EGCL, edge_stack
 from dfmdock_tpu_torch.models.modules import (
     LN_EPS,
     TimeEmbed,
+    compute_dtype,
     dropout,
     init_weights,
+    linear,
     pair_energy_rows,
     time_tensor,
 )
@@ -104,10 +108,12 @@ class ScoreNet(nn.Module):
         init_weights(self, generator)
         return self
 
-    def embed_nodes(self, x: torch.Tensor) -> torch.Tensor:
+    def embed_nodes(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """h0 = single_embed(x); static across steps and poses, so the
-        sampler computes it once per complex and passes batch['h0']."""
-        return self.single_embed(x)
+        sampler computes it once per complex and passes batch['h0'].  Its
+        product is cast as the predict (or with `train` the training)
+        forward's (`compute_dtype`)."""
+        return linear(x, self.single_embed.weight, dtype=compute_dtype(self.cfg, train))
 
     def forward(self, batch: dict, pos: torch.Tensor, t, *, generator=None,
                 gumbel=None, edges=None, scores_only: bool = False) -> dict:
@@ -142,7 +148,7 @@ class ScoreNet(nn.Module):
         idx, edge_mask = edges
         h, coord_out = edge_stack(
             c, self.egnn, self.spatial_embed.weight.t(), self.positional_embed.weight.t(),
-            batch, pos, h, idx, edge_mask, lig_valid)
+            batch, pos, h, idx, edge_mask, lig_valid, dtype=compute_dtype(c))
 
         # force from the coordinate update of ligand CAs -> tr/rot scores
         out = pose_scores(self, ca, (coord_out - ca) * lig_valid[:, None], n_lig, t)
@@ -159,9 +165,10 @@ class ScoreNet(nn.Module):
                     gumbel=None, edges=None, dedx: bool = False,
                     return_energy: bool = False) -> dict | torch.Tensor:
         """Training forward (the JAX package's `apply(train=True)`): the
-        eager float32 path whatever `cfg.use_pallas` says (the kernels are
-        inference-only on both sides), dropout in the scale MLPs, the
-        energy head in row chunks under activation checkpointing.
+        eager path whatever `cfg.use_pallas` says (the kernels are
+        inference-only on both sides), its products cast as
+        `cfg.compute_dtype` says, dropout in the scale MLPs, the energy head
+        in row chunks under activation checkpointing.
 
         pos [P, N, 3, 3] and t (a float or a tensor) as `forward`; the edge
         noise, injected Gumbel noise or edges as there, the dropout masks
@@ -188,8 +195,9 @@ class ScoreNet(nn.Module):
             pos = pos - center.detach()[:, None, None, :]
         if dedx:
             pos = pos.detach().requires_grad_(True)
+        dtype = compute_dtype(c, train=True)
 
-        h = self.embed_nodes(batch["x"]).expand(p, n, -1)
+        h = self.embed_nodes(batch["x"], train=True).expand(p, n, -1)
         ca = pos[..., 1, :]
         dist = pairwise_ca_dist(pos).detach()
         if edges is None:
@@ -198,14 +206,14 @@ class ScoreNet(nn.Module):
         idx, edge_mask = edges
         h, coord_out = edge_stack(
             c, self.egnn, self.spatial_embed.weight.t(), self.positional_embed.weight.t(),
-            batch, pos, h, idx, edge_mask, lig_valid, fused=False)
+            batch, pos, h, idx, edge_mask, lig_valid, fused=False, dtype=dtype)
 
         pair_mask = rec_valid[:, None] * lig_valid[None, :] * (dist < c.cut_off)
         if dedx:
-            energy, g_h = self._energy_and_grad_h(h, pair_mask)
+            energy, g_h = self._energy_and_grad_h(h, pair_mask, dtype)
             (dpos,) = torch.autograd.grad(h, pos, g_h, create_graph=True)
         else:
-            energy = self._energy_train(h, pair_mask)
+            energy = self._energy_train(h, pair_mask, dtype)
         if return_energy:
             return energy
 
@@ -217,35 +225,41 @@ class ScoreNet(nn.Module):
             out["dedx"] = -dpos[..., 1, :] * lig_valid[:, None]
         return out
 
-    def _energy_halves(self, h):
+    def _energy_halves(self, h, dtype=None):
+        """hr, hl [P, N, C] (the first Linear's h_i / h_j halves, their
+        products cast to `dtype`) and the head's (LayerNorm weight, bias,
+        last Linear's row)."""
         c = h.shape[-1]
         w = self.to_energy["l0"].weight  # [C, 2C]: h_i / h_j halves
         ln = self.to_energy["ln"]
-        return (h @ w[:, :c].t(), h @ w[:, c:].t(),
+        return (linear(h, w[:, :c], dtype=dtype), linear(h, w[:, c:], dtype=dtype),
                 (ln.weight, ln.bias, self.to_energy["l1"].weight[0]))
 
-    def _energy_train(self, h, pair_mask):
+    def _energy_train(self, h, pair_mask, dtype=None):
         """The energy [P] of `_energy` in row chunks, each recomputed in the
         backward (checkpointing) instead of keeping its [chunk, N, C]
-        intermediates."""
-        hr, hl, head = self._energy_halves(h)
+        intermediates; the products cast to `dtype` where given."""
+        hr, hl, head = self._energy_halves(h, dtype)
         chunk = min(ENERGY_ROW_CHUNK, h.shape[-2])
         num = sum(checkpoint(pair_energy_rows, hr[:, s : s + chunk], hl,
-                             pair_mask[:, s : s + chunk], *head, use_reentrant=False)
+                             pair_mask[:, s : s + chunk], *head, dtype=dtype,
+                             use_reentrant=False)
                   for s in range(0, h.shape[-2], chunk))
         return num / (pair_mask.sum((-2, -1)) + 1e-6)
 
-    def _energy_and_grad_h(self, h, pair_mask):
+    def _energy_and_grad_h(self, h, pair_mask, dtype=None):
         """The energy [P] and dE/dh [P, N, C]: each row chunk's gradient
         with respect to hr and hl taken inside its checkpointed region,
-        then back through the first Linear's two halves."""
-        hr, hl, head = self._energy_halves(h)
+        then back through the first Linear's two halves in float32, as the
+        JAX package's `_energy_and_grad_h` (its `g_hr @ w[:C].T`) whatever
+        the compute dtype."""
+        hr, hl, head = self._energy_halves(h, dtype)
         n, chunk = h.shape[-2], min(ENERGY_ROW_CHUNK, h.shape[-2])
         nums, g_hr, g_hl = [], [], 0.0
         for s in range(0, n, chunk):
             num_c, g_hr_c, g_hl_c, _ = checkpoint(
                 pair_energy_rows, hr[:, s : s + chunk], hl, pair_mask[:, s : s + chunk],
-                *head, None, None, True, use_reentrant=False)
+                *head, None, None, True, dtype=dtype, use_reentrant=False)
             nums.append(num_c)
             g_hr.append(g_hr_c)
             g_hl = g_hl + g_hl_c
@@ -260,7 +274,11 @@ class ScoreNet(nn.Module):
         the first Linear split into its h_i / h_j halves; the kernel path
         through ops/energy_head, the eager path through its plain version
         (row chunks: [P, N, N, C] never materializes).  h [P, N, C],
-        pair_mask [P, N, N] -> [P]."""
+        pair_mask [P, N, N] -> [P].  With bf16 products (the eager route
+        of a bfloat16 config) the training forward's chunks compute it."""
+        dtype = compute_dtype(self.cfg)
+        if dtype is not None:
+            return self._energy_train(h, pair_mask, dtype)
         c = h.shape[-1]
         w = self.to_energy["l0"].weight  # [C, 2C]: h_i / h_j halves
         hr = torch.matmul(h, w[:, :c].t())

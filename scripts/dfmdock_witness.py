@@ -17,8 +17,15 @@ the 128-residue bucket):
 - `port-cuda`: the same sweep through the kernels on a CUDA card;
 - `port-exact-cuda`: the `port` side's eager float32 path on a CUDA card
   (TF32 off): the CPU side's arithmetic in another summation order, without
-  the kernels.  The two CUDA sides need a card; without JAX installed, run
-  them alone.
+  the kernels;
+- `port-cuda-cpu-draws`, `port-exact-cuda-cpu-draws`: the two CUDA sides
+  with every random draw made on a CPU torch.Generator, in the order the
+  `port` side draws them, and moved to the card: the start poses and the
+  SDE noise through `EMSampler.sample(init=, noise=)`, the Gumbel noise of
+  the edges through the net's `gumbel=` on each forward (`CPUDraws`).  The
+  draws are then the `port` side's own at the same seed, so what differs
+  from it is the card's rounding alone.
+The CUDA sides need a card; without JAX installed, run them alone.
 Prints one line per run and side: each complex's mean DockQ over all poses,
 its best and its min-energy pick, then the means of each side over all runs
 beside the record (eval_train.csv, made on a TPU v5e).  `--summarize DIR`
@@ -92,6 +99,75 @@ def jax_side(ids, seed, num_samples, num_steps, dtype):
 
 PORT_ROUTES = {"port": ["--device", "cpu", "--exact"], "port-cuda": ["--device", "cuda"],
                "port-exact-cuda": ["--device", "cuda", "--exact"]}
+
+
+CPU_DRAW_SIDES = {"port-cuda-cpu-draws": False, "port-exact-cuda-cpu-draws": True}
+
+
+class CPUDraws:
+    """The net of a sampler whose every forward takes its Gumbel noise, and
+    each of the first `num_steps` forwards then the step's SDE noise (z_rot,
+    z_tr), from the CPU generator `generator`, in the order the sampler
+    draws them on the CPU; `noise` holds the SDE noise as the two lists that
+    `EMSampler.sample(noise=)` indexes by step."""
+
+    def __init__(self, net, generator, num_steps):
+        self.net, self.generator, self.num_steps = net, generator, num_steps
+        self.noise = ([], [])
+
+    def embed_nodes(self, x):
+        return self.net.embed_nodes(x)
+
+    def __call__(self, batch, pos, t, generator=None, scores_only=False):
+        import torch
+
+        from dfmdock_tpu_torch.models.edges import sample_gumbel
+
+        p, n = pos.shape[:2]
+        gumbel = sample_gumbel((p, n, n), self.generator, "cpu").to(pos.device)
+        out = self.net(batch, pos, t, gumbel=gumbel, scores_only=scores_only)
+        if len(self.noise[0]) < self.num_steps:
+            for z in self.noise:
+                z.append(torch.randn((p, 1, 3), generator=self.generator).to(pos.device))
+        return out
+
+
+def port_cpu_draws_side(ids, seed, num_samples, num_steps, exact, device="cuda"):
+    """The sweep of `port_side` on the card (the kernel route, or with
+    `exact` the eager one), every draw made on one CPU generator seeded by
+    `seed`, as the `port` side's.  With `device` "cpu" and `exact` it is
+    the `port` side itself, draw for draw (a check of the draws' order)."""
+    import torch
+
+    from dfmdock_tpu_torch.cli.common import build_sampler, dock_complex, load_model
+    from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
+    from dfmdock_tpu_torch.data.batching import round_up
+    from dfmdock_tpu_torch.data.dataset import NPZDataset, batch_to_tensors, complex_to_batch
+    from dfmdock_tpu_torch.sampler.em import randomize_pose
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DFMDockConfig(model=ModelConfig() if exact else ModelConfig.fast(),
+                        sampler=SamplerConfig(num_steps=num_steps))
+    device = torch.device(device)
+    net = load_model(os.path.join(CKPT, "weights.npz"), cfg, device, lineage="dfmdock")
+    generator = torch.Generator().manual_seed(seed)
+    ds, rows = NPZDataset(DATA), []
+    for cid in (i for i in ds.ids if i in ids):
+        raw = ds.load_raw(ds.ids.index(cid))
+        n = raw["rec_x"].shape[0] + raw["lig_x"].shape[0]
+        pad_to = round_up(n, BUCKET)
+        host = batch_to_tensors(complex_to_batch(raw, pad_to=pad_to), torch.device("cpu"))
+        init = tuple(a.to(device) for a in randomize_pose(
+            generator, host["pos"], host["lig_mask"], host["node_mask"], cfg.sampler,
+            num_samples))
+        draws = CPUDraws(net, generator, num_steps)
+        sampler = build_sampler(draws, cfg)
+        recs, _, _ = dock_complex(
+            sampler, raw, None, num_samples, device, native=(raw["rec_pos"], raw["lig_pos"]),
+            pad_to=pad_to, run_fn=lambda b, g: sampler.sample(b, num_samples, None, init=init,
+                                                             noise=draws.noise))
+        rows += recs
+    return groups_of(rows)
 
 
 def port_side(ids, seed, num_samples, num_steps, side):
@@ -183,15 +259,19 @@ def main(argv=None):
     if not set(ids) <= set(RECORD_ORDER):
         ap.error(f"--ids must be among {RECORD_ORDER}")
     sides = args.sides.split(",")
-    if not set(sides) <= {"jax-bf16", "jax-f32", *PORT_ROUTES}:
-        ap.error(f"--sides takes jax-bf16, jax-f32 and {', '.join(PORT_ROUTES)}")
+    if not set(sides) <= {"jax-bf16", "jax-f32", *PORT_ROUTES, *CPU_DRAW_SIDES}:
+        ap.error(f"--sides takes jax-bf16, jax-f32, {', '.join(PORT_ROUTES)} and "
+                 f"{', '.join(CPU_DRAW_SIDES)}")
     record = {k: g for k, g in record_groups().items() if k in ids}
     print(f"# JAX record (v5e): {fmt(record)}", flush=True)
     runs = {s: [] for s in sides}
     for seed in (int(s) for s in args.seeds.split(",")):
         for side in sides:
             t0 = time.perf_counter()
-            if side.startswith("port"):
+            if side in CPU_DRAW_SIDES:
+                g = port_cpu_draws_side(ids, seed, args.num_samples, args.num_steps,
+                                        CPU_DRAW_SIDES[side])
+            elif side.startswith("port"):
                 g = port_side(ids, seed, args.num_samples, args.num_steps, side)
             else:
                 g = jax_side(ids, seed, args.num_samples, args.num_steps,

@@ -12,8 +12,9 @@ can be held equal.
   JAX's gathers exact (see tests/test_torch_losses.py);
 - the IGSO3 angle sampler against its density (Kolmogorov-Smirnov);
 - the training CLI: 2 epochs on 2 small complexes, its config.yaml as JAX
-  writes it, the saved weights resumed and docked, --no-pool, the refused
-  --compute-dtype bfloat16, and --dp's refusal of --batch-size 1.
+  writes it, the saved weights resumed and docked, --no-pool, 2 epochs at
+  --compute-dtype bfloat16 (and one --dp step of it at 2 gloo ranks), and
+  --dp's refusal of --batch-size 1.
 """
 import dataclasses
 import os
@@ -234,14 +235,50 @@ def test_dispatch_chunk_matches_jax():
         assert train.dispatch_chunk(*args) == jax_dispatch_chunk(*args), args
 
 
-@pytest.mark.parametrize("flags", [["--dp"], ["--compute-dtype", "bfloat16"]])
+@pytest.mark.parametrize("flags", [["--dp"]])
 def test_cli_train_refuses_unported_options(flags, capsys):
-    """bfloat16 training is not ported; --dp is, and refuses the default
-    --batch-size 1 as the JAX package does (tests/test_torch_parallel.py)."""
+    """--dp refuses the default --batch-size 1 as the JAX package does
+    (tests/test_torch_parallel.py)."""
     with pytest.raises(SystemExit):
         train.main(["--device", "cpu"] + flags)
-    want = "--dp requires --batch-size" if flags == ["--dp"] else "ROADMAP Queue 1"
-    assert want in capsys.readouterr().err
+    assert "--dp requires --batch-size" in capsys.readouterr().err
+
+
+def test_cli_train_bf16(small_data, tmp_path):
+    """2 epochs at --compute-dtype bfloat16 (mlsb, the second-order energy
+    term): finite metrics, config.yaml as the JAX CLI writes it, and the
+    saved weights load for a float32 dock as for a bfloat16 one."""
+    ck = str(tmp_path / "ck")
+    out = train.main(["--data-dir", small_data, "--crop-size", "64", "--device", "cpu",
+                      "--log-every", "1", "--pool-variants", "1", "--epochs", "2",
+                      "--grad-energy", "--compute-dtype", "bfloat16", "--ckpt-dir", ck])
+    assert out["steps"] == 4
+    assert all(np.isfinite(v) for r in out["rows"] for v in r.values())
+    assert out["net"].cfg.compute_dtype == "bfloat16"
+    with open(os.path.join(ck, "config.yaml")) as f:
+        written = yaml.safe_load(f)
+    jax_cfg = JaxDFMDockConfig(model=JaxModelConfig(compute_dtype="bfloat16"),
+                               experiment=JaxExperimentConfig(grad_energy=True))
+    assert written == dataclasses.asdict(jax_cfg)
+    trained = load_model(os.path.join(ck, "weights.npz"), DFMDockConfig(), torch.device("cpu"))
+    for k, v in out["net"].state_dict().items():
+        assert torch.equal(trained.state_dict()[k], v), k
+
+
+def test_cli_train_bf16_dp_two_ranks(small_data, tmp_path):
+    """--dp at bfloat16 over two gloo ranks: one step of the two complexes
+    of the DFMDock lineage, finite, rank 0 saving."""
+    ck = str(tmp_path / "ck")
+    out = train.main(["--data-dir", small_data, "--crop-size", "64", "--device", "cpu",
+                      "--lineage", "dfmdock", "--grad-energy", "--log-every", "1",
+                      "--pool-variants", "1", "--epochs", "1", "--batch-size", "2", "--dp",
+                      "--world-size", "2", "--compute-dtype", "bfloat16", "--ckpt-dir", ck])
+    assert out["steps"] == 1
+    assert all(np.isfinite(v) for r in out["rows"] for v in r.values())
+    with open(os.path.join(ck, "config.yaml")) as f:
+        assert yaml.safe_load(f)["model"]["compute_dtype"] == "bfloat16"
+    load_model(os.path.join(ck, "weights.npz"), DFMDockConfig(), torch.device("cpu"),
+               lineage="dfmdock")
 
 
 def test_trainer_fit_and_evaluate(tmp_path):

@@ -2,6 +2,13 @@
 
     python3 chip_smoke.py
 
+The kernel route has two precisions: fast() computes in bf16, as the JAX
+package's (fused_egcl in its single-pass bf16 mode, counted apart as
+fused_egcl_bf16 / fused_egcl_coord_bf16), and fast(compute_dtype="float32")
+is the float32 route (fused_egcl in three bf16 passes).  The float32 gates
+(phase 4's F32_PARITY_REL, the bit-equal trajectories, the DockQ gates)
+run on the float32 route, reached through the CLIs' `model` argument;
+the CLIs' default is the bf16 route, and the bf16 phases are named below.
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: the card's name and power limit;
   2. build: nvcc builds every kernel of dfmdock_tpu_torch/csrc/, in parallel;
@@ -13,16 +20,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      also bit-equal to the table's bins), edge selection (select_topk, exact,
      with a forced-tie case), the EGCL layers (masked edges' geometry
      poisoned with NaN on the small graph, two launches bit-equal) and the
-     pair energy head (fused_energy, with one all-masked pose).  Then
+     pair energy head (fused_energy, with one all-masked pose); fused_egcl's
+     bf16 mode, both variants, against its plain version at dtype bf16
+     (BF16_KERNEL_REL, two launches bit-equal).  Then
      select_topk, exact, at the sweep's buckets N = 512 and 768 (16 poses,
      sample_size 40 and 0) and on a 4096-node chain (one pose, 64 MB of
      dist: the widest rows the kernel takes); fused_energy, rel 1e-4, two
      launches bit-equal, the last pose all masked, on the native 1AVX
      interface mask (~0.6% kept), a dense 30% mask and C = 1024;
   4. ScoreNet parity: the forward through the kernels (card) against the
-     forward through the plain versions (CPU), full width, seeded weights:
-     fast() at t in {0.1, 0.5, 0.9} on injected edges, fast() selecting its
-     own edges from injected Gumbel noise, and fast(edge_table_kernel=False),
+     forward through the plain versions (CPU), full width, seeded weights,
+     on the float32 route: fast(f32) at t in {0.1, 0.5, 0.9} on injected
+     edges, fast(f32) selecting its own edges from injected Gumbel noise,
+     and fast(f32, edge_table_kernel=False),
      full forwards (energy through fused_energy); every output's error is
      printed, and a failing case relaunches each kernel call of its forward
      on the recorded inputs (the forward's output against a relaunch, two
@@ -30,13 +40,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      for the DFMDock lineage (DFMDockModel, trained weights from
      ckpts/db5_holdout_dfmdock/weights.npz) at t in {0.1, 0.5}: six
      agg-only fused_egcl calls a forward, no coord or energy kernel;
+  4b. the bf16 parity matrix: fast() (bf16) on the card against the eager
+     float32 path on the CPU, seeded weights, N in {128, 256, 448, 640} x t
+     in {0.1, 0.5, 0.9} (PARITY_TOL / PARITY_ABS, or the eager bf16 route's
+     own distance from float32 times BF16_ROUTE_FACTOR: bf16_parity_phase
+     says why); the trained DFMDock lineage's fast() forward against its
+     eager float32 path;
   5. dock: the dock CLI in-process on 1AVX, 16 poses x 40 steps, after a
-     warm-up run; steps/s, each kernel's time, launches and bound;
+     warm-up run, at its default (bf16) and on the float32 route; steps/s,
+     launches;
   6. sampler: denoising steps/s over EMSampler.sample alone (the same 16
-     poses x 40 steps, no model build, file I/O or DockQ), three runs;
-  7. profile: torch.profiler over a 10-step sample of the same complex; the
-     device's busy share, the kernels that take its time, and each port
-     kernel's device time per launch;
+     poses x 40 steps, no model build, file I/O or DockQ), three runs on
+     each route;
+  7. profile: torch.profiler over a 10-step sample of the same complex on
+     each route; the device's busy share, the kernels that take its time,
+     and each port kernel's device time per launch;
   8. ranking dock: the dock CLI with --rank-by reranker (1 + 5 t x 4 draws
      = 21 fused_energy launches) and with --energy-draws 4; the inputs of
      the reranker run's first fused_energy call (its final poses) are kept,
@@ -48,18 +66,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      v5e record) and the sweep over all 24 DB5 complexes (16 poses, seed 5),
      gated against the JAX record eval_all.csv: the mean DockQ over all
      poses and the min-energy-pick mean each at least the record's less its
-     bootstrap margin (quality_gate);
+     bootstrap margin (quality_gate); then the same sweep on the bf16 route
+     under the same gate (the record is itself a JAX bf16 run), its
+     launches equal to the float32 sweep's mode for mode;
   9c. the DFMDock lineage: the sweep --lineage dfmdock with its trained
      weights (40 poses, seed 5) over the four complexes it was trained on,
      gated against eval_train.csv, and over the four held out, beside
      eval_holdout.csv; six fused_egcl launches per forward and no
      fused_egcl_coord or fused_energy launch; a 10-step profile at P = 16;
+     then both sets on the bf16 route beside their records, ungated
+     (dfmdock_sweep_phase says why);
   9d. Picard latency mode (trained mlsb, 1AVX, one pose): the dock with
      --picard-iters 10 beside the sequential --ode dock (walls); Picard at
      K = T = 40 bit-equal to K = T + 1 and to the sequential ODE run at
      its launch shape, and against the 1-pose sequential ODE from the same
      generator seed step by step, with the edges and bins of every forward
-     compared (PICARD_STEP_TOL);
+     compared (PICARD_STEP_TOL); on the bf16 route K = T bit-equal to
+     K = T + 1;
  9e. PDB inputs: 1AVX's receptor and ligand written as two PDB files
      (save_pdb of the npz backbone) and docked through the CLI with the
      trained mlsb weights and --one-hot-only (16 poses x 40 steps), then a
@@ -87,8 +110,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      edges) on the card against the CPU (BF16_PREDICT_REL);
  9i. dp dock: the dock CLI with --dp (torch.distributed, one NCCL rank on
      the card) on 1AVX with the trained mlsb weights, 16 poses x 40 steps,
-     against the plain dock at the same seed: poses, energies and rows
-     bit-equal (both walls printed; every dock kernel must launch);
+     against the plain dock at the same seed, on each route: poses,
+     energies and rows bit-equal (both walls printed; every dock kernel
+     must launch);
  9j. dp sweep: the sweep CLI with --dp over 1AVX and 7CEI (trained mlsb, 16
      poses): its rows equal the plain sweep's;
  9k. dp training: the training CLI with --dp --batch-size 2 (one step of a
@@ -103,18 +127,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      boundary ties), and the full-width
      forward of parallel/dryrun.entry();
  10. kernel routes: 40-step samples of 16 poses under one generator seed
-     through fast(), fast(select_kernel=True) and fast(edge_table_kernel=
-     False).  Edge selection has one route (select_topk, ties to the lower
-     index), so the select route's trajectory must equal fast()'s bit for
-     bit (a gate); where the bins route's leaves it is reported.
+     through fast(f32), its select_kernel=True and edge_table_kernel=False
+     routes, fast() (bf16) and its select_kernel=True route.  Edge selection
+     has one route (select_topk, ties to the lower index), so each select
+     route's trajectory must equal its precision's fast() bit for bit (a
+     gate); where the bins route's and the bf16 route's leave fast(f32)'s
+     is reported.
 Phases 9i-9l run last, after the kernel table's timings (below).
 The kernel table after phase 10 gives each kernel's time by CUDA events,
 its device time (torch.profiler), its enqueue time on the host (host_ms:
 1,000 calls with no synchronize), its plain version's time and its bound.
 Each main path (phases 5, 8, 9, 9b-9e, 9g-9k, 9m and the routes of 10) runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
-path that did not launch (or, on the DFMDock lineage, one that must not
-run and did) fails the run.  The last line is {"ok": true,
+path that did not launch (or one that must not run and did: the other
+precision's fused_egcl mode, and on the DFMDock lineage the coord and
+energy kernels) fails the run.  The kernel line's fused_egcl_bf16 rows
+take their launches from the dock CLI's default (bf16) run, the float32
+rows from the float32 dock.  The last line is {"ok": true,
 "device": {...}}; the line before it lists the kernels.  Without a CUDA card
 the script exits non-zero and prints no result.
 """
@@ -143,7 +172,7 @@ import dfmdock_tpu_torch.models.score_net as score_net_mod
 from dfmdock_tpu_torch.cli import dock, sweep, train
 from dfmdock_tpu_torch.cli.common import build_sampler, load_model
 from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
-from dfmdock_tpu_torch.data.batching import round_up
+from dfmdock_tpu_torch.data.batching import pad_complex, round_up
 from dfmdock_tpu_torch.data.convert import load_npz_complex
 from dfmdock_tpu_torch.data.dataset import NPZDataset, batch_to_tensors, complex_to_batch
 from dfmdock_tpu_torch.data.pdb_io import save_pdb
@@ -194,6 +223,20 @@ from dfmdock_tpu_torch.train.trainer import make_optimizer
 NPZ = os.path.join("data", "db5_npz", "1AVX.npz")
 P, N_PAD, STEPS = 16, 448, 40
 F32_REL = 1e-4  # kernel vs plain, max |diff| / max |plain|, float32 outputs
+# fused_egcl's single-pass bf16 mode against its plain version (dtype bf16):
+# both round the same values to bf16 (round to nearest), so they differ
+# where the float32 sums ahead of a rounding (pre, in another order; the
+# kernel's fast-math silu) tip a value across a bf16 rounding boundary, one
+# bf16 step (2^-8) on that element.  A CPU emulation at the dock's shapes
+# (silu perturbed by 2e-7 of itself) moves the outputs by <= 9.5e-5 of
+# their largest; the float32 mode lies ~3e-3 of the largest away, so this
+# tolerance tells the two modes apart.
+BF16_KERNEL_REL = 1e-3
+# The kernel route: fast() computes in bf16, as the JAX package's; the
+# float32 kernel route is fast(compute_dtype="float32"), on which the float32
+# gates (phase 4's F32_PARITY_REL, the bit-equal trajectories) and the DockQ
+# gates run.
+FAST_F32 = ModelConfig.fast(compute_dtype="float32")
 # Kernel-path vs plain-path ScoreNet tolerances (max |diff| / max |ref|), a
 # case passing on either the relative or the absolute criterion.  The port's
 # own copy of bench.py's PARITY_TOL / PARITY_ABS, which were set for bf16
@@ -207,6 +250,17 @@ PARITY_ABS = {"energy": 5e-3, "tr_score": 1e-3, "rot_score": 2e-3, "f": 5e-3,
               "ires": 5e-3}
 F32_PARITY_REL = 1e-3
 SCORE_NET_OUTPUTS = ("energy", "tr_score", "rot_score", "f", "ires")
+# The bf16 parity matrix (phase 4b): fast() on the card against the eager
+# float32 path on the CPU at PARITY_TOL / PARITY_ABS, as bench.py holds the
+# JAX package's compiled Pallas path (BENCH_r05.json: 12 of 12; worst energy
+# 9.7e-3, ires 2.3e-2): 1AVX at N = 448 and random-walk complexes at the
+# other buckets, t in PARITY_T.
+PARITY_NS, PARITY_T = (128, 256, 448, 640), (0.1, 0.5, 0.9)
+# Where bf16 compute itself lies further from float32 than PARITY_TOL (the
+# eager bf16 route, no kernel, on the same case), the kernel route is held
+# within this factor of that distance: both routes round the same values
+# to bf16 and differ by the ties that f32 sums in another order tip.
+BF16_ROUTE_FACTOR = 2.0
 # The DFMDock lineage's outputs under the tolerance of the ScoreNet output
 # they stand for: its interface logits as `ires`, its confidence logit (a
 # masked mean over the same pairs as the energy) as `energy`.
@@ -260,6 +314,10 @@ SOURCES = {
                    "dfmdock_tpu/ops/fused_egcl.py:216"),
     "fused_egcl_coord": ("dfmdock_tpu_torch/csrc/fused_egcl.cu",
                          "dfmdock_tpu/ops/fused_egcl.py:226"),
+    "fused_egcl_bf16": ("dfmdock_tpu_torch/csrc/fused_egcl.cu",
+                        "dfmdock_tpu/ops/fused_egcl.py:216"),
+    "fused_egcl_coord_bf16": ("dfmdock_tpu_torch/csrc/fused_egcl.cu",
+                              "dfmdock_tpu/ops/fused_egcl.py:226"),
     "fused_energy": ("dfmdock_tpu_torch/csrc/energy_head.cu",
                      "dfmdock_tpu/ops/energy_head.py:29"),
     "select_topk": ("dfmdock_tpu_torch/csrc/select_topk.cu",
@@ -268,12 +326,20 @@ SOURCES = {
                   "dfmdock_tpu/ops/edge_bins.py:74"),
 }
 BUILD = ("edge_table", "fused_egcl", "energy_head", "select_topk")
-# the kernels each main path must launch
+# the kernels each main path must launch: the float32 kernel route, and the
+# bf16 route (fast(), the CLIs' default), whose fused_egcl launches are
+# counted apart; neither route may launch the other's fused_egcl mode
 DOCK_KERNELS = ("select_topk", "edge_table", "fused_egcl", "fused_egcl_coord", "fused_energy")
+DOCK_KERNELS_BF16 = ("select_topk", "edge_table", "fused_egcl_bf16", "fused_egcl_coord_bf16",
+                     "fused_energy")
+F32_ABSENT = ("fused_egcl_bf16", "fused_egcl_coord_bf16")
+BF16_ABSENT = ("fused_egcl", "fused_egcl_coord")
 ROUTE_KERNELS = {
     "fast": DOCK_KERNELS,
     "select": DOCK_KERNELS,
     "bins": ("select_topk", "edge_bins", "fused_egcl", "fused_egcl_coord", "fused_energy"),
+    "fast bf16": DOCK_KERNELS_BF16,
+    "select bf16": DOCK_KERNELS_BF16,
 }
 RERANK_T, RERANK_DRAWS, ENERGY_DRAWS = 5, 4, 4
 SWEEP_IDS = ("1AVX", "7CEI")
@@ -287,7 +353,9 @@ DFMDOCK_HOLDOUT = ("1QA9", "7CEI", "2SIC", "1JPS")
 DFMDOCK_POSES = 40
 # the DFMDock lineage's EGNN is agg-only and its energy head plain torch
 DFMDOCK_KERNELS = ("select_topk", "edge_table", "fused_egcl")
-DFMDOCK_ABSENT = ("fused_egcl_coord", "fused_energy")
+DFMDOCK_ABSENT = ("fused_egcl_coord", "fused_energy") + F32_ABSENT
+DFMDOCK_KERNELS_BF16 = ("select_topk", "edge_table", "fused_egcl_bf16")
+DFMDOCK_ABSENT_BF16 = ("fused_egcl_coord_bf16", "fused_energy") + BF16_ABSENT
 # Quality gates against a record: the margin is the 0.1% quantile of the
 # difference between two bootstrap resamples of the record (10,000 draws),
 # so a port that docks like the record fails about one run in a thousand.
@@ -427,6 +495,8 @@ def reset_counts():
     build_edge_table.launches = 0
     fused_edge_layer.launches = 0
     fused_edge_layer.coord_launches = 0
+    fused_edge_layer.bf16_launches = 0
+    fused_edge_layer.bf16_coord_launches = 0
     fused_energy.launches = 0
     select_topk.launches = 0
     edge_bins.launches = 0
@@ -436,6 +506,8 @@ def counts():
     return {"edge_table": build_edge_table.launches,
             "fused_egcl": fused_edge_layer.launches,
             "fused_egcl_coord": fused_edge_layer.coord_launches,
+            "fused_egcl_bf16": fused_edge_layer.bf16_launches,
+            "fused_egcl_coord_bf16": fused_edge_layer.bf16_coord_launches,
             "fused_energy": fused_energy.launches,
             "select_topk": select_topk.launches,
             "edge_bins": edge_bins.launches}
@@ -643,12 +715,45 @@ def kernel_phase(raw, device):
             log(f"# {name} P={num_poses} N={n_pad} seed={seed}"
                 f"{' (masked geometry NaN)' if cx is not None else ''}: max abs "
                 f"{a_err:.3e} rel {r_err:.3e}, two launches bit-equal")
+        check_egcl_bf16(errs, f"P={num_poses} N={n_pad} seed={seed}"
+                        f"{' (masked geometry NaN)' if cx is not None else ''}",
+                        layer_args, coord)
         if main_inputs is None:
             main_inputs = {"table": args, "layer": layer_args, "coord": coord,
                            "select": (dist, y, batch["node_mask"])}
     select_cases(raw, device, errs)
     energy_cases(raw, device, errs)
     return errs, main_inputs
+
+
+def check_egcl_bf16(errs, tag, layer_args, coord):
+    """fused_egcl's single-pass bf16 mode, both variants, against its plain
+    version at dtype bf16: rel BF16_KERNEL_REL, finite, two launches
+    bit-equal; the distance to the float32 mode's output is printed."""
+    bf16 = torch.bfloat16
+    outs = [fused_edge_layer(*layer_args, dtype=bf16), fused_edge_layer(*layer_args, coord,
+                                                                       dtype=bf16)]
+    again = [fused_edge_layer(*layer_args, dtype=bf16), fused_edge_layer(*layer_args, coord,
+                                                                        dtype=bf16)]
+    plain = [fused_edge_layer_plain(*layer_args, dtype=bf16),
+             fused_edge_layer_plain(*layer_args, coord, dtype=bf16)]
+    f32 = [fused_edge_layer_plain(*layer_args), fused_edge_layer_plain(*layer_args, coord)]
+    torch.cuda.synchronize()
+    if not (torch.equal(outs[0], again[0])
+            and all(torch.equal(a, b) for a, b in zip(outs[1], again[1]))):
+        raise AssertionError("fused_egcl bf16: two launches on the same inputs differ")
+    for name, out, ref, ref32 in (
+            ("fused_egcl_bf16 agg", outs[0], plain[0], f32[0]),
+            ("fused_egcl_coord_bf16 agg", outs[1][0], plain[1][0], f32[1][0]),
+            ("fused_egcl_coord_bf16 trans", outs[1][1], plain[1][1], f32[1][1])):
+        a_err, r_err, _ = max_errs(out, ref)
+        if r_err > BF16_KERNEL_REL or not torch.isfinite(out).all():
+            raise AssertionError(f"{name} {tag}: rel err {r_err:.3e} > {BF16_KERNEL_REL}")
+        key = name.split()[0]
+        errs[key] = max(errs[key], a_err)
+        log(f"# {name} {tag}: max abs {a_err:.3e} rel {r_err:.3e} against the plain bf16 "
+            f"version (limit {BF16_KERNEL_REL}), two launches bit-equal; the float32 mode's "
+            f"plain output lies rel {max_errs(ref32, ref)[1]:.3e} away")
 
 
 def check_select(errs, tag, dist, y, node_mask, knn=20, sample_size=40):
@@ -798,32 +903,35 @@ def diagnose_kernels(calls):
     return rows
 
 
-def parity_errors(outputs, o_k, o_p):
+def parity_errors(outputs, o_k, o_p, f32=True):
     """{output: (max abs, rel, ok)} of a kernel-path forward's outputs o_k
-    against the plain path's o_p (phase 4's tolerances), num_clashes exact."""
+    against the plain path's o_p (phase 4's tolerances; with `f32` also
+    F32_PARITY_REL), num_clashes exact."""
     errs = {}
     for name in outputs:
         tol = PARITY_ALIAS.get(name, name)
         a_err, r_err, scale = max_errs(o_k[name].cpu(), o_p[name].cpu())
         ok = ((r_err < PARITY_TOL[tol] or a_err < PARITY_ABS[tol] < scale)
-              and r_err <= F32_PARITY_REL)
+              and (r_err <= F32_PARITY_REL or not f32))
         errs[name] = (a_err, r_err, ok)
     same = torch.equal(o_k["num_clashes"].cpu(), o_p["num_clashes"].cpu())
     errs["num_clashes"] = (0.0 if same else 1.0, 0.0 if same else 1.0, same)
     return errs
 
 
-def parity_check(label, outputs, net_k, net_p, batch, pos, t, kw_k, kw_p):
+def parity_check(label, outputs, net_k, net_p, batch, pos, t, kw_k, kw_p, f32=True):
     """One kernel-path forward (card) against the plain path (CPU): every
     output's error is printed; on a failure each kernel call of the forward
-    is diagnosed (diagnose_kernels) before the check fails."""
+    is diagnosed (diagnose_kernels) before the check fails.  `f32`: the
+    float32 route's bound F32_PARITY_REL applies too.  Returns (the
+    forward's kernel calls, parity_errors)."""
     cpu = lambda d: {k: v.cpu() for k, v in d.items()}
     with torch.no_grad(), recording_kernels() as calls:
         o_k = net_k(batch, pos, t, **kw_k)
         torch.cuda.synchronize()
     with torch.no_grad():
         o_p = net_p(cpu(batch), pos.cpu(), t, **kw_p)
-    errs = parity_errors(outputs, o_k, o_p)
+    errs = parity_errors(outputs, o_k, o_p, f32)
     for name, (a_err, r_err, ok) in errs.items():
         log(f"# parity {label} t={t} {name}: max abs {a_err:.3e} rel {r_err:.3e} "
             f"{'ok' if ok else 'FAIL'}")
@@ -833,7 +941,7 @@ def parity_check(label, outputs, net_k, net_p, batch, pos, t, kw_k, kw_p):
             f"{len(calls)} kernel calls, each relaunched and against its plain version:")
         diagnose_kernels(calls)
         raise AssertionError(f"parity failed: {label} t={t} {failed}")
-    return calls
+    return calls, errs
 
 
 def parity_inputs(raw, device):
@@ -860,16 +968,16 @@ def injected(inject, edges, gumbel):
 
 def parity_phase(raw, device):
     """ScoreNet through the kernels (card) vs through the plain versions
-    (CPU), same seeded weights, full forwards: fast() and
-    fast(edge_table_kernel=False) on the same injected edges, fast()
-    selecting its own edges (select_topk on each side) from the same
-    injected Gumbel noise."""
+    (CPU), same seeded weights, full forwards, on the float32 kernel route:
+    fast(f32) and fast(f32, edge_table_kernel=False) on the same injected
+    edges, fast(f32) selecting its own edges (select_topk on each side) from
+    the same injected Gumbel noise."""
     batch, pos, edges, gumbel = parity_inputs(raw, device)
     routes = (
-        ("fast()", ModelConfig.fast(), (0.1, 0.5, 0.9), "edges"),
-        ("fast() selecting", ModelConfig.fast(), (0.5,), "gumbel"),
-        ("fast(edge_table_kernel=False)", ModelConfig.fast(edge_table_kernel=False), (0.5,),
-         "edges"),
+        ("fast(f32)", FAST_F32, (0.1, 0.5, 0.9), "edges"),
+        ("fast(f32) selecting", FAST_F32, (0.5,), "gumbel"),
+        ("fast(f32, edge_table_kernel=False)",
+         dataclasses.replace(FAST_F32, edge_table_kernel=False), (0.5,), "edges"),
     )
     for label, mcfg, ts, inject in routes:
         cfg = DFMDockConfig(model=mcfg)
@@ -884,61 +992,75 @@ def parity_phase(raw, device):
 
 
 def dock_phase(out_root):
-    """The dock CLI in-process: warm-up, then the counted and timed run."""
-    warm = os.path.join(out_root, "warm")
-    dock.main(["--npz", NPZ, "--num-samples", str(P), "--num-steps", "2",
-               "--out-dir", warm])
-    out = os.path.join(out_root, "dock")
-    rows, wall, launches = run_path("dock", DOCK_KERNELS, lambda: dock.main(
-        ["--npz", NPZ, "--num-samples", str(P), "--num-steps", str(STEPS), "--out-dir", out]))
-    with open(os.path.join(out, "metrics.csv")) as f:
-        csv_rows = list(csv.DictReader(f))
-    if len(csv_rows) != P or len(rows) != P:
-        raise AssertionError(f"expected {P} CSV rows, got {len(csv_rows)}")
-    energies = np.array([float(r["energy"]) for r in csv_rows])
-    if not np.isfinite(energies).all():
-        raise AssertionError("non-finite energies in the CSV")
-    if not glob.glob(os.path.join(out, "1AVX_*.pdb")):
-        raise AssertionError("no PDB written")
-    steps_s = P * STEPS / wall
-    log(f"# dock 1AVX P={P} steps={STEPS}: wall {wall:.3f} s, {steps_s:.2f} "
-        f"denoising steps/s, {wall / P:.4f} s per docked pose, "
-        f"best DockQ {max(float(r['DockQ']) for r in csv_rows):.4f}")
-    log(f"# dock launches per forward: "
-        f"{({k: v / (STEPS + 1) for k, v in launches.items()})}")
-    return launches, steps_s
+    """The dock CLI in-process: a warm-up of each route, then the counted
+    and timed runs of the CLI's default (fast(), bf16) and of the float32
+    kernel route (the API's `model`).  Returns {route: (launches,
+    denoising steps/s)}."""
+    result = {}
+    for route, model, kernels, absent in (("bf16", None, DOCK_KERNELS_BF16, BF16_ABSENT),
+                                          ("f32", FAST_F32, DOCK_KERNELS, F32_ABSENT)):
+        dock.main(["--npz", NPZ, "--num-samples", str(P), "--num-steps", "2",
+                   "--out-dir", os.path.join(out_root, f"warm_{route}")], model)
+        out = os.path.join(out_root, f"dock_{route}")
+        label = "dock" if model is None else "f32 dock"
+        rows, wall, launches = run_path(label, kernels, lambda: dock.main(
+            ["--npz", NPZ, "--num-samples", str(P), "--num-steps", str(STEPS), "--out-dir", out],
+            model), absent)
+        with open(os.path.join(out, "metrics.csv")) as f:
+            csv_rows = list(csv.DictReader(f))
+        if len(csv_rows) != P or len(rows) != P:
+            raise AssertionError(f"expected {P} CSV rows, got {len(csv_rows)}")
+        energies = np.array([float(r["energy"]) for r in csv_rows])
+        if not np.isfinite(energies).all():
+            raise AssertionError("non-finite energies in the CSV")
+        if not glob.glob(os.path.join(out, "1AVX_*.pdb")):
+            raise AssertionError("no PDB written")
+        steps_s = P * STEPS / wall
+        log(f"# {label} 1AVX P={P} steps={STEPS} ({route} kernel route): wall {wall:.3f} s, "
+            f"{steps_s:.2f} denoising steps/s, {wall / P:.4f} s per docked pose, "
+            f"best DockQ {max(float(r['DockQ']) for r in csv_rows):.4f}")
+        log(f"# {label} launches per forward: "
+            f"{({k: v / (STEPS + 1) for k, v in launches.items()})}")
+        result[route] = (launches, steps_s)
+    return result
 
 
 def sampler_phase(raw, device, reps=3):
     """Denoising steps/s over EMSampler.sample alone: P poses x STEPS steps
     and the final full forward, a synchronize on each side, after a
-    warm-up; the median of `reps` runs."""
-    cfg = DFMDockConfig(model=ModelConfig.fast(), sampler=SamplerConfig(num_steps=STEPS))
-    sampler = build_sampler(load_model(None, cfg, device), cfg)
-    batch = batch_to_tensors(complex_to_batch(raw), device)
-    gen = torch.Generator(device).manual_seed(0)
-    sampler.sample(batch, P, gen)
-    walls = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = sampler.sample(batch, P, gen)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        if not torch.isfinite(out["energy"]).all():
-            raise AssertionError("sampler: non-finite energies")
-    wall = statistics.median(walls)
-    log(f"# sampler 1AVX P={P} steps={STEPS}: {P * STEPS / wall:.2f} denoising steps/s "
-        f"(median of {[round(w, 4) for w in walls]} s)")
-    return P * STEPS / wall
+    warm-up; the median of `reps` runs, on the float32 kernel route and on
+    fast() (bf16).  Returns {route: steps/s}."""
+    rates = {}
+    for route, mcfg in (("f32", FAST_F32), ("bf16", ModelConfig.fast())):
+        cfg = DFMDockConfig(model=mcfg, sampler=SamplerConfig(num_steps=STEPS))
+        sampler = build_sampler(load_model(None, cfg, device), cfg)
+        batch = batch_to_tensors(complex_to_batch(raw), device)
+        gen = torch.Generator(device).manual_seed(0)
+        sampler.sample(batch, P, gen)
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sampler.sample(batch, P, gen)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if not torch.isfinite(out["energy"]).all():
+                raise AssertionError("sampler: non-finite energies")
+        wall = statistics.median(walls)
+        rates[route] = P * STEPS / wall
+        log(f"# sampler 1AVX P={P} steps={STEPS} ({route} kernel route): {rates[route]:.2f} "
+            f"denoising steps/s (median of {[round(w, 4) for w in walls]} s)")
+    return rates
 
 
-def profile_phase(raw, device, steps=10, top=12, lineage="mlsb", ckpt=None):
+def profile_phase(raw, device, steps=10, top=12, lineage="mlsb", ckpt=None, mcfg=FAST_F32):
     """Device time by kernel over one sample of P poses x `steps` steps (+ the
-    final full forward) of a lineage's model, after a warm-up sample."""
+    final full forward) of a lineage's model at `mcfg` (the float32 kernel
+    route, or fast()), after a warm-up sample."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = DFMDockConfig(model=ModelConfig.fast(), sampler=SamplerConfig(num_steps=steps))
+    cfg = DFMDockConfig(model=mcfg, sampler=SamplerConfig(num_steps=steps))
+    lineage_tag = f"{lineage} {mcfg.compute_dtype}"
     sampler = build_sampler(load_model(ckpt, cfg, device, lineage=lineage), cfg)
     batch = batch_to_tensors(complex_to_batch(raw), device)
     gen = torch.Generator(device).manual_seed(0)
@@ -957,8 +1079,8 @@ def profile_phase(raw, device, steps=10, top=12, lineage="mlsb", ckpt=None):
     if busy_ms == 0:
         log("# profile: the profiler recorded no device time (not measured)")
         return
-    log(f"# profile {lineage} P={P} steps={steps}+final forward: wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+    log(f"# profile {lineage_tag} P={P} steps={steps}+final forward: wall {wall_ms:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
         f"{100 * (1 - busy_ms / wall_ms):.1f}%")
     for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
         log(f"#   {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / 1e3 / busy_ms:5.1f}% "
@@ -967,13 +1089,15 @@ def profile_phase(raw, device, steps=10, top=12, lineage="mlsb", ckpt=None):
     # around the wrapper also see when the kernel is short
     for name, key in (("edge_table", "edge_table_kernel<true>"),
                       ("select_topk", "select_topk_kernel"),
-                      ("fused_egcl", "fused_egcl_kernel<false>"),
-                      ("fused_egcl_coord", "fused_egcl_kernel<true>"),
+                      ("fused_egcl", "fused_egcl_kernel<false, false>"),
+                      ("fused_egcl_coord", "fused_egcl_kernel<true, false>"),
+                      ("fused_egcl_bf16", "fused_egcl_kernel<false, true>"),
+                      ("fused_egcl_coord_bf16", "fused_egcl_kernel<true, true>"),
                       ("fused_energy", "energy_")):
         hits = [e for e in kernels if key in e.key]
         launches = sum(e.count for e in hits if "reduce" not in e.key)
         if launches:
-            log(f"# profile {lineage} {name}: {sum(map(dev_us, hits)) / 1e3 / launches:.4f} ms "
+            log(f"# profile {lineage_tag} {name}: {sum(map(dev_us, hits)) / 1e3 / launches:.4f} ms "
                 f"device time per launch (x{launches})")
 
 
@@ -984,11 +1108,11 @@ def read_csv(path):
 
 
 def rank_phase(out_root):
-    """The dock CLI ranking its poses: --rank-by reranker (features at 5 t x
-    4 draws) and --energy-draws 4.  Returns the reranker run's launches and
-    the inputs of its first fused_energy call (the forward at the final
-    poses), on which the kernel line times fused_energy and counts its
-    bound."""
+    """The dock CLI ranking its poses on the float32 kernel route: --rank-by
+    reranker (features at 5 t x 4 draws) and --energy-draws 4.  Returns the
+    reranker run's launches and the inputs of its first fused_energy call
+    (the forward at the final poses), on which the kernel line times
+    fused_energy and counts its bound."""
     if not os.path.exists(dock.DEFAULT_RERANKER):
         raise AssertionError(f"reranker weights missing: {dock.DEFAULT_RERANKER}")
     result, calls = None, []
@@ -1007,7 +1131,7 @@ def rank_phase(out_root):
         try:
             _, wall, launches = run_path(label, DOCK_KERNELS, lambda: dock.main(
                 ["--npz", NPZ, "--num-samples", str(P), "--num-steps", str(STEPS),
-                 "--out-dir", out] + flags))
+                 "--out-dir", out] + flags, FAST_F32), F32_ABSENT)
         finally:
             score_net_mod.fused_energy = fused_energy
         if launches["fused_energy"] != energy_launches:
@@ -1032,14 +1156,15 @@ def rank_phase(out_root):
 
 
 def sweep_phase(out_root):
-    """The sweep CLI over SWEEP_IDS, one complex per call (the second through
-    --resume): wall per complex and the rows written."""
+    """The sweep CLI over SWEEP_IDS on the float32 kernel route, one complex
+    per call (the second through --resume): wall per complex and the rows
+    written."""
     out_csv = os.path.join(out_root, "sweep.csv")
     for i, cid in enumerate(SWEEP_IDS):
         ids = ",".join(SWEEP_IDS[: i + 1])
         _, wall, _ = run_path(f"sweep {cid}", DOCK_KERNELS, lambda: sweep.main(
             ["--ids", ids, "--num-samples", str(P), "--out-csv", out_csv]
-            + (["--resume"] if i else [])))
+            + (["--resume"] if i else []), FAST_F32), F32_ABSENT)
         log(f"# sweep {cid} P={P} steps={STEPS}: wall {wall:.3f} s")
     _, rows = read_csv(out_csv)
     got = [r["id"] for r in rows]
@@ -1052,11 +1177,14 @@ def sweep_phase(out_root):
 
 def route_phase(raw, device, steps=STEPS):
     """40-step samples of P poses from one generator seed through each
-    kernel route, the edges of every forward recorded.  Every route selects
-    through select_topk, so the select route (the JAX config's select_kernel
-    flag, which the port keeps only for equality) must reproduce fast()'s
-    edges and trajectory bit for bit; the bins route's torch geometry moves
-    its trajectory, which is reported.  Returns the launches of each route."""
+    kernel route, the edges of every forward recorded: the float32 kernel
+    route's fast(f32), select and bins routes, and fast() (bf16) with its
+    select route.  Every route selects through select_topk, so each select
+    route (the JAX config's select_kernel flag, which the port keeps only
+    for equality) must reproduce its precision's fast() edges and trajectory
+    bit for bit; where the bins route's torch geometry, or the bf16 route,
+    leaves the float32 fast() trajectory is reported.  Returns the launches
+    of each route."""
     batch = batch_to_tensors(complex_to_batch(raw), device)
     out, launches, edges = {}, {}, {}
     select = score_net_mod.select_edges
@@ -1068,29 +1196,34 @@ def route_phase(raw, device, steps=STEPS):
 
     score_net_mod.select_edges = recording
     try:
-        for name, mcfg in (("fast", ModelConfig.fast()),
-                           ("select", ModelConfig.fast(select_kernel=True)),
-                           ("bins", ModelConfig.fast(edge_table_kernel=False))):
+        for name, mcfg in (("fast", FAST_F32),
+                           ("select", dataclasses.replace(FAST_F32, select_kernel=True)),
+                           ("bins", dataclasses.replace(FAST_F32, edge_table_kernel=False)),
+                           ("fast bf16", ModelConfig.fast()),
+                           ("select bf16", ModelConfig.fast(select_kernel=True))):
             cfg = DFMDockConfig(model=mcfg, sampler=SamplerConfig(num_steps=steps))
             sampler = build_sampler(load_model(None, cfg, device), cfg)
             gen = torch.Generator(device).manual_seed(5)
             edges[name] = []
             out[name], wall, launches[name] = run_path(
                 f"{name} route", ROUTE_KERNELS[name],
-                lambda: sampler.sample(batch, P, gen, record_trajectory=True))
+                lambda: sampler.sample(batch, P, gen, record_trajectory=True),
+                F32_ABSENT if mcfg.compute_dtype == "float32" else BF16_ABSENT)
             if not torch.isfinite(out[name]["trajectory"]).all():
                 raise AssertionError(f"{name} route: non-finite trajectory")
             log(f"# {name} route P={P} steps={steps}: {P * steps / wall:.2f} steps/s")
     finally:
         score_net_mod.select_edges = select
-    ref = out["fast"]["trajectory"]
-    for name in ("select", "bins"):
+    for name, ref_name, gate in (("select", "fast", True), ("bins", "fast", False),
+                                 ("select bf16", "fast bf16", True),
+                                 ("fast bf16", "fast", False)):
+        ref = out[ref_name]["trajectory"]
         diff = (out[name]["trajectory"] - ref).abs().amax(dim=(0, 2, 3, 4))
         moved = torch.nonzero(diff > 0)
         first = int(moved[0]) + 1 if len(moved) else None
         # the first forward whose edges (on valid slots) differ
         first_edges = n_diff = n_sets = None
-        for step, ((i_a, m_a), (i_b, m_b)) in enumerate(zip(edges["fast"], edges[name]), 1):
+        for step, ((i_a, m_a), (i_b, m_b)) in enumerate(zip(edges[ref_name], edges[name]), 1):
             valid = (m_a > 0.5) | (m_b > 0.5)
             bad = (i_a != i_b) & valid
             if bad.any() or not torch.equal(m_a, m_b):
@@ -1099,7 +1232,7 @@ def route_phase(raw, device, steps=STEPS):
                         != torch.sort(torch.where(valid, i_b, -1), -1)[0]).any(-1)
                 first_edges, n_diff, n_sets = step, int(bad.sum()), int(sets.sum())
                 break
-        log(f"# route {'check' if name == 'select' else 'finding'}: {name} vs fast over "
+        log(f"# route {'check' if gate else 'finding'}: {name} vs {ref_name} over "
             f"{steps} steps: "
             + ("identical trajectories" if first is None else
                f"poses first differ after step {first} ({float(diff[first - 1]):.3e} A, "
@@ -1107,8 +1240,9 @@ def route_phase(raw, device, steps=STEPS):
             + ("; identical edges in every forward" if first_edges is None else
                f"; edges first differ in forward {first_edges} ({n_diff} valid slots, "
                f"{n_sets} rows with another neighbour set)"))
-        if name == "select" and (first is not None or first_edges is not None):
-            raise AssertionError("the select route's edges or trajectory differ from fast()'s")
+        if gate and (first is not None or first_edges is not None):
+            raise AssertionError(f"the {name} route's edges or trajectory differ from "
+                                 f"{ref_name}'s")
     return launches
 
 
@@ -1183,13 +1317,14 @@ def quality_gate(label, rows, record, ids, gate=True):
 
 
 def trained_phase(out_root):
-    """The trained mlsb weights (ckpts/db5_demo/weights.npz): the dock of
-    1AVX (P poses x STEPS steps), then the sweep over all 24 DB5 complexes
-    (16 poses, seed 5) gated against the JAX record eval_all.csv."""
+    """The trained mlsb weights (ckpts/db5_demo/weights.npz) on the float32
+    kernel route: the dock of 1AVX (P poses x STEPS steps), then the sweep
+    over all 24 DB5 complexes (16 poses, seed 5) gated against the JAX
+    record eval_all.csv.  Returns the sweep's launches."""
     out = os.path.join(out_root, "trained_dock")
     rows, wall, _ = run_path("trained dock", DOCK_KERNELS, lambda: dock.main(
         ["--npz", NPZ, "--ckpt", DEMO_NPZ, "--num-samples", str(P), "--num-steps", str(STEPS),
-         "--out-dir", out]))
+         "--out-dir", out], FAST_F32), F32_ABSENT)
     e = np.array([r["energy"] for r in rows])
     dq = np.array([r["DockQ"] for r in rows])
     pick = int(np.argmin(e))
@@ -1199,53 +1334,179 @@ def trained_phase(out_root):
         f"pose 5 energy -44.4894 DockQ 0.839)")
     out_csv = os.path.join(out_root, "trained_sweep.csv")
     rows, wall, launches = run_path("trained sweep", DOCK_KERNELS, lambda: sweep.main(
-        ["--ckpt", DEMO_NPZ, "--num-samples", str(P), "--seed", "5", "--out-csv", out_csv]))
+        ["--ckpt", DEMO_NPZ, "--num-samples", str(P), "--seed", "5", "--out-csv", out_csv],
+        FAST_F32), F32_ABSENT)
     log(f"# trained sweep: {len(rows)} rows, wall {wall:.3f} s")
     quality_gate("trained mlsb sweep", rows, DEMO_RECORD, set(r["id"] for r in rows))
     return launches
 
 
-def dfmdock_parity_phase(raw, device):
-    """The trained DFMDock-lineage weights, fast(): the kernel-path forward
+def bf16_trained_phase(out_root, f32_launches):
+    """The trained mlsb sweep on the sweep CLI's default route, fast() in
+    bf16 (the route the JAX record eval_all.csv itself was made on, v5e):
+    all 24 DB5 complexes x 16 poses, seed 5, gated by quality_gate as the
+    float32 route's; its launches equal the float32 sweep's, mode for mode."""
+    out_csv = os.path.join(out_root, "trained_sweep_bf16.csv")
+    rows, wall, launches = run_path("trained sweep bf16", DOCK_KERNELS_BF16, lambda: sweep.main(
+        ["--ckpt", DEMO_NPZ, "--num-samples", str(P), "--seed", "5", "--out-csv", out_csv]),
+        BF16_ABSENT)
+    log(f"# trained sweep bf16: {len(rows)} rows, wall {wall:.3f} s")
+    want = {**f32_launches, "fused_egcl_bf16": f32_launches["fused_egcl"],
+            "fused_egcl_coord_bf16": f32_launches["fused_egcl_coord"], "fused_egcl": 0,
+            "fused_egcl_coord": 0}
+    if launches != want:
+        raise AssertionError(f"trained sweep bf16: launches {launches}, the float32 route's "
+                             f"{f32_launches}")
+    quality_gate("trained mlsb sweep bf16", rows, DEMO_RECORD, set(r["id"] for r in rows))
+
+
+def dfmdock_parity_phase(raw, device, mcfg=FAST_F32, ref_cfg=None):
+    """The trained DFMDock-lineage weights through the kernels at `mcfg`
     (card) against the plain path (CPU) on phase 4's inputs (injected
-    edges, the native pose and a random one), t in {0.1, 0.5}; the forward
-    makes six agg-only fused_egcl calls and none of the coord or energy
-    kernels."""
+    edges, the native pose and a random one), t in {0.1, 0.5}: the float32
+    route against its own plain versions (phase 4's tolerances), or with
+    `ref_cfg` (the bf16 route against the eager float32 path) at
+    PARITY_TOL / PARITY_ABS alone; the forward makes six agg-only
+    fused_egcl calls and none of the coord or energy kernels."""
     batch, pos, edges, gumbel = parity_inputs(raw, device)
-    cfg = DFMDockConfig(model=ModelConfig.fast())
+    cfg = DFMDockConfig(model=mcfg)
     net_k = load_model(DFMDOCK_NPZ, cfg, device, lineage="dfmdock")
-    net_p = load_model(DFMDOCK_NPZ, cfg, torch.device("cpu"), lineage="dfmdock")
+    net_p = load_model(DFMDOCK_NPZ, DFMDockConfig(model=ref_cfg or mcfg), torch.device("cpu"),
+                       lineage="dfmdock")
     kw_k, kw_p = injected("edges", edges, gumbel)
+    label = "dfmdock fast(f32)" if ref_cfg is None else "dfmdock fast() vs eager f32"
     for t in (0.1, 0.5):
-        calls = parity_check("dfmdock fast()", DFMDOCK_OUTPUTS, net_k, net_p, batch, pos, t,
-                             kw_k, kw_p)
+        calls, _ = parity_check(label, DFMDOCK_OUTPUTS, net_k, net_p, batch, pos, t, kw_k,
+                                kw_p, f32=ref_cfg is None)
         made = [(name, len(out)) for name, _, _, out in calls]
         if made != [("edge_table", 2)] + [("fused_egcl", 1)] * cfg.model.depth:
             raise AssertionError(f"dfmdock forward made kernel calls {made}")
 
 
-def dfmdock_sweep_phase(out_root):
+def synthetic_complex(n_pad, seed):
+    """bench.py's `_synthetic_batch`: a random-walk complex of 0.55 n_pad
+    receptor and 0.38 n_pad ligand residues (generic N / CA / C offsets),
+    random 1301-wide features, padded to n_pad."""
+    r = np.random.RandomState(seed)
+    n_rec, n_lig = int(n_pad * 0.55), int(n_pad * 0.38)
+    mk = lambda ca: np.stack([ca + [-1.2, 0.8, 0.35] + r.randn(*ca.shape) * 0.05, ca,
+                              ca + [1.3, 0.7, -0.4] + r.randn(*ca.shape) * 0.05], 1)
+    rec_ca = np.cumsum(r.randn(n_rec, 3) * 1.5 + [3.8, 0, 0], axis=0)
+    lig_ca = np.cumsum(r.randn(n_lig, 3) * 1.5 + [3.8, 0, 0], axis=0) + [12, 6, 0]
+    return pad_complex(r.randn(n_rec, 1301).astype(np.float32),
+                       r.randn(n_lig, 1301).astype(np.float32),
+                       mk(rec_ca).astype(np.float32), mk(lig_ca).astype(np.float32),
+                       pad_to=n_pad)
+
+
+def bf16_parity_phase(raw, device):
+    """The bf16 parity matrix: the fast() ScoreNet (bf16, the kernels) on the
+    card against the eager float32 path (ModelConfig()) on the CPU, the same
+    seeded weights (seed 0, as phase 4), over N in PARITY_NS x t in PARITY_T
+    (1AVX's native pose at 448, bench.py's random-walk complexes at the
+    others; one pose, edges selected once on the card and injected on both
+    sides), num_clashes exact.  Each output of each case passes on
+    PARITY_TOL / PARITY_ABS, or else within BF16_ROUTE_FACTOR times the
+    distance of the eager bf16 route (ModelConfig(compute_dtype="bfloat16"),
+    no kernel, on the CPU) from float32 on the same case: the distance that
+    bf16 compute itself sets.  Against true float32 the bf16 products
+    can turn rot_score, the direction of a torque summed over the ligand
+    with much cancellation at random weights, by more than PARITY_TOL's 2e-2
+    (seed 0, 1AVX: 3.2e-2 through the kernels' plain versions, 3.6e-2 on the
+    eager bf16 route; the CPU), while bench.py's BENCH_r05.json reference
+    ran on a TPU, whose float32 matmuls at default precision take bf16
+    operands.  The counts on each criterion are printed.  Then the trained
+    DFMDock lineage's fast() forward against its eager float32 path on phase
+    4's inputs at PARITY_TOL / PARITY_ABS."""
+    cpu = torch.device("cpu")
+    net_k = load_model(None, DFMDockConfig(model=ModelConfig.fast()), device, seed=0)
+    net_p = load_model(None, DFMDockConfig(model=ModelConfig()), cpu, seed=0)
+    net_e = load_model(None, DFMDockConfig(model=ModelConfig(compute_dtype="bfloat16")), cpu,
+                       seed=0)
+    worst = {name: (0.0, "") for name in SCORE_NET_OUTPUTS}
+    on_tol = on_route = 0
+    for n_pad in PARITY_NS:
+        cx = (complex_to_batch(raw, pad_to=n_pad) if n_pad == N_PAD
+              else synthetic_complex(n_pad, seed=n_pad))
+        batch = batch_to_tensors(cx, device)
+        host = {k: v.cpu() for k, v in batch.items()}
+        pos = batch["pos"][None].contiguous()
+        edges = select_edges(pairwise_ca_dist(pos), batch["node_mask"],
+                             generator=torch.Generator(device).manual_seed(7))
+        host_edges = tuple(e.cpu() for e in edges)
+        for t in PARITY_T:
+            label = f"bf16 matrix {'1AVX' if n_pad == N_PAD else 'synth'}/{n_pad} t={t}"
+            reset_counts()
+            with torch.no_grad(), recording_kernels() as calls:
+                o_k = net_k(batch, pos, t, edges=edges)
+                torch.cuda.synchronize()
+            if counts()["fused_egcl_bf16"] == 0 or counts()["fused_egcl"] != 0:
+                raise AssertionError(f"{label}: launches {counts()}")
+            with torch.no_grad():
+                o_p = net_p(host, pos.cpu(), t, edges=host_edges)
+            errs = parity_errors(SCORE_NET_OUTPUTS, o_k, o_p, f32=False)
+            off = [name for name, (_, _, ok) in errs.items() if not ok]
+            route = {}
+            if off and "num_clashes" not in off:
+                with torch.no_grad():
+                    o_e = net_e(host, pos.cpu(), t, edges=host_edges)
+                route = {name: max_errs(o_e[name], o_p[name])[1] for name in off}
+            bad = [name for name in off
+                   if name not in route or errs[name][1] > BF16_ROUTE_FACTOR * route[name]]
+            for name, (a_err, r_err, ok) in errs.items():
+                note = ("" if ok else f" (eager bf16 route rel {route[name]:.3e}: "
+                        f"{'within' if name not in bad else 'beyond'} {BF16_ROUTE_FACTOR}x)"
+                        if name in route else " FAIL")
+                log(f"# parity {label} {name}: max abs {a_err:.3e} rel {r_err:.3e} "
+                    f"{'ok' if ok else ''}{note}")
+                if name in worst and r_err > worst[name][0]:
+                    worst[name] = (r_err, label)
+            if bad:
+                diagnose_kernels(calls)
+                raise AssertionError(f"bf16 parity matrix failed: {label} {bad}")
+            on_tol, on_route = on_tol + (not off), on_route + bool(off)
+    log(f"# bf16 parity matrix (seeded weights, seed 0): {on_tol}/"
+        f"{len(PARITY_NS) * len(PARITY_T)} cases pass PARITY_TOL / PARITY_ABS on every output, "
+        f"{on_route} on the eager bf16 route's bound; worst rel " + ", ".join(
+            f"{k} {v:.3e} ({at})" for k, (v, at) in worst.items())
+        + " (the JAX package's compiled Pallas path against its TPU reference, "
+        "BENCH_r05.json: 12/12, worst energy 9.7e-3, ires 2.3e-2)")
+    dfmdock_parity_phase(raw, device, ModelConfig.fast(), ModelConfig())
+
+
+def dfmdock_sweep_phase(out_root, bf16=False):
     """The sweep --lineage dfmdock with its trained weights, 40 poses, seed 5:
     over the four complexes it was trained on, gated against the JAX record
-    eval_train.csv, then the four it never saw beside eval_holdout.csv.
-    Each forward makes six agg-only fused_egcl launches (one edge table)
-    and no fused_egcl_coord or fused_energy launch."""
+    eval_train.csv, then the four it never saw beside eval_holdout.csv, on
+    the float32 kernel route.  With `bf16`, the sweep CLI's default route
+    (fast(), bf16), both sets beside their records with no gate: the port's
+    pick mean falls under the training set's limit at half of seeds 5-12 on
+    any device (ROADMAP F4), so a gate at one seed on a new route would gate
+    the draw, not the route; the bf16 route's quality over seeds 5-10 is
+    read by scripts/dfmdock_witness.py --sides port-cuda-bf16.  Each forward
+    makes six agg-only fused_egcl launches (one edge table) of the route's
+    mode and no fused_egcl_coord or fused_energy launch."""
     result = None
+    kernels, absent = ((DFMDOCK_KERNELS_BF16, DFMDOCK_ABSENT_BF16) if bf16
+                       else (DFMDOCK_KERNELS, DFMDOCK_ABSENT))
+    egcl = "fused_egcl_bf16" if bf16 else "fused_egcl"
+    tag = " bf16" if bf16 else ""
     for label, ids, record, gate in (
-            ("train", DFMDOCK_TRAIN, "eval_train.csv", True),
+            ("train", DFMDOCK_TRAIN, "eval_train.csv", not bf16),
             ("held-out", DFMDOCK_HOLDOUT, "eval_holdout.csv", False)):
-        out_csv = os.path.join(out_root, f"dfmdock_{label}.csv")
+        out_csv = os.path.join(out_root, f"dfmdock_{label}{tag.strip()}.csv")
         rows, wall, launches = run_path(
-            f"dfmdock sweep {label}", DFMDOCK_KERNELS, lambda: sweep.main(
+            f"dfmdock sweep {label}{tag}", kernels, lambda: sweep.main(
                 ["--lineage", "dfmdock", "--ckpt", DFMDOCK_NPZ, "--ids", ",".join(ids),
-                 "--num-samples", str(DFMDOCK_POSES), "--seed", "5", "--out-csv", out_csv]),
-            absent=DFMDOCK_ABSENT)
-        if launches["fused_egcl"] != 6 * launches["edge_table"]:
-            raise AssertionError(f"dfmdock sweep: {launches['fused_egcl']} fused_egcl for "
+                 "--num-samples", str(DFMDOCK_POSES), "--seed", "5", "--out-csv", out_csv],
+                None if bf16 else FAST_F32),
+            absent=absent)
+        if launches[egcl] != 6 * launches["edge_table"]:
+            raise AssertionError(f"dfmdock sweep: {launches[egcl]} {egcl} for "
                                  f"{launches['edge_table']} forwards")
-        log(f"# dfmdock sweep {label} ({', '.join(ids)}) P={DFMDOCK_POSES} steps={STEPS}: "
+        log(f"# dfmdock sweep {label}{tag} ({', '.join(ids)}) P={DFMDOCK_POSES} steps={STEPS}: "
             f"wall {wall:.3f} s, {launches['edge_table']} forwards")
-        quality_gate(f"dfmdock sweep {label}", rows,
+        quality_gate(f"dfmdock sweep {label}{tag}", rows,
                      os.path.join("ckpts", "db5_holdout_dfmdock", record), set(ids), gate)
         result = result or launches
     return result
@@ -1267,14 +1528,14 @@ def picard_phase(raw, device, out_root):
         out = os.path.join(out_root, label.replace(" ", "_"))
         argv = ["--npz", NPZ, "--ckpt", DEMO_NPZ, "--num-samples", "1", "--num-steps",
                 str(STEPS), "--out-dir", out] + flags
-        dock.main(argv)  # warm-up: the first forwards at this shape
+        dock.main(argv, FAST_F32)  # warm-up: the first forwards at this shape
         rows, walls[label], launches = run_path(f"dock {label}", DOCK_KERNELS,
-                                                lambda: dock.main(argv))
+                                                lambda: dock.main(argv, FAST_F32), F32_ABSENT)
         log(f"# dock 1AVX {label} P=1 steps={STEPS}: wall {walls[label]:.3f} s, "
             f"{launches['edge_table']} forwards, DockQ {rows[0]['DockQ']:.3f}")
     log(f"# Picard latency trade (P=1): {walls['picard-iters 10']:.3f} s with 10 iterations "
         f"against {walls['sequential --ode']:.3f} s sequential")
-    cfg = DFMDockConfig(model=ModelConfig.fast(), sampler=SamplerConfig(num_steps=STEPS, ode=True))
+    cfg = DFMDockConfig(model=FAST_F32, sampler=SamplerConfig(num_steps=STEPS, ode=True))
     net = load_model(DEMO_NPZ, cfg, device)
     seq_sampler = build_sampler(net, cfg)
     batch = batch_to_tensors(complex_to_batch(raw), device)
@@ -1396,14 +1657,27 @@ def picard_phase(raw, device, out_root):
     if first_flip is None and delta > PICARD_STEP_TOL:
         raise AssertionError(f"Picard vs the sequential ODE: the same edges and bins, "
                              f"final poses {delta:.3e} A apart")
+    # the fixed point on the bf16 route: K = T and K = T + 1 bit-equal
+    cfg16 = dataclasses.replace(cfg, model=ModelConfig.fast())
+    net16 = load_model(DEMO_NPZ, cfg16, device)
+    picard16 = lambda k: PicardSampler(net16, seq_sampler.r3, seq_sampler.so3, cfg16.sampler,
+                                       num_iters=k).sample(batch, 1, gen())["pos"]
+    same, _, launches16 = run_path("Picard bf16 K=T and K=T+1", DOCK_KERNELS_BF16,
+                                   lambda: torch.equal(picard16(STEPS), picard16(STEPS + 1)),
+                                   BF16_ABSENT)
+    if not same:
+        raise AssertionError("Picard bf16: K = T and K = T + 1 iterations differ")
+    log(f"# Picard bf16 (fast()) K=T={STEPS}: equal to K=T+1 bit for bit "
+        f"({launches16['edge_table']} forwards in the two runs)")
 
 
 def pdb_dock_phase(out_root, npz_launches):
     """The dock from PDB files: 1AVX's receptor and ligand written as two PDBs
     from the npz backbone (save_pdb), docked through the CLI with the
     trained mlsb weights and --one-hot-only (P poses x STEPS steps); then a
-    --csv of two rows (the npz, the PDB pair).  The forwards launch the
-    --npz dock's kernels in the same counts (twice over for the CSV).  No
+    --csv of two rows (the npz, the PDB pair), on the float32 kernel route.
+    The forwards launch the --npz dock's kernels in the same counts (twice
+    over for the CSV).  No
     DockQ gate: the zeroed ESM columns are not what the model was trained
     on."""
     raw = load_npz_complex(NPZ)
@@ -1419,7 +1693,7 @@ def pdb_dock_phase(out_root, npz_launches):
                              ("csv dock", ["--csv", pairs], 2)):
         out = os.path.join(out_root, label.replace(" ", "_"))
         rows, wall, launches = run_path(label, DOCK_KERNELS, lambda: dock.main(
-            src + common + ["--out-dir", out]))
+            src + common + ["--out-dir", out], FAST_F32), F32_ABSENT)
         want = {k: jobs * v for k, v in npz_launches.items()}
         if launches != want:
             raise AssertionError(f"{label}: launches {launches}, the --npz dock's x{jobs}: "
@@ -1753,38 +2027,49 @@ def captured_docks():
 
 def dp_dock_phase(out_root, smi):
     """The dock CLI with --dp (one NCCL rank on this card) against the plain
-    dock: trained mlsb weights, 1AVX, P poses x STEPS steps, one seed.  The
-    poses, energies and every CSV row must be bit-equal; both walls are
-    printed.  The --dp run is counted and must launch every dock kernel."""
+    dock: trained mlsb weights, 1AVX, P poses x STEPS steps, one seed, on
+    the float32 kernel route and on the default fast() (bf16).  The poses,
+    energies and every CSV row must be bit-equal; both walls are printed.
+    The --dp runs are counted and must launch every dock kernel of their
+    route.  Returns the float32 --dp run's launches."""
     argv = ["--npz", NPZ, "--ckpt", DEMO_NPZ, "--num-samples", str(P), "--num-steps",
             str(STEPS), "--seed", "7"]
-    with captured_docks() as plain:
-        rows_p, wall_p, _ = run_path("plain dock (dp reference)", DOCK_KERNELS, lambda: dock.main(
-            argv + ["--out-dir", os.path.join(out_root, "dp_ref")]))
-    with captured_docks() as dp:
-        rows_d, wall_d, launches = run_path("dp dock", DOCK_KERNELS, lambda: dock.main(
-            argv + ["--out-dir", os.path.join(out_root, "dp"), "--dp"]))
-    for k in ("pos", "energy", "num_clashes", "tr_update", "rot_update"):
-        if not np.array_equal(dp[0][k], plain[0][k]):
-            err = np.abs(dp[0][k].astype(np.float64) - plain[0][k]).max()
-            raise AssertionError(f"dp dock: {k} differs from the plain dock's (max abs {err:.3e})")
-    if rows_d != rows_p:
-        raise AssertionError("dp dock: the CSV rows differ from the plain dock's")
-    log(f"# dp dock 1AVX P={P} steps={STEPS} (NCCL, 1 rank; card {smi}): wall {wall_d:.3f} s "
-        f"against the plain dock's {wall_p:.3f} s (the --dp wall includes opening and closing "
-        f"the process group); poses, energies and rows bit-equal")
-    return launches
+    result = None
+    for route, model, kernels, absent in (("f32", FAST_F32, DOCK_KERNELS, F32_ABSENT),
+                                          ("bf16", None, DOCK_KERNELS_BF16, BF16_ABSENT)):
+        with captured_docks() as plain:
+            rows_p, wall_p, _ = run_path(f"plain dock {route} (dp reference)", kernels,
+                                         lambda: dock.main(argv + ["--out-dir", os.path.join(
+                                             out_root, f"dp_ref_{route}")], model), absent)
+        with captured_docks() as dp:
+            rows_d, wall_d, launches = run_path(f"dp dock {route}", kernels, lambda: dock.main(
+                argv + ["--out-dir", os.path.join(out_root, f"dp_{route}"), "--dp"], model),
+                absent)
+        for k in ("pos", "energy", "num_clashes", "tr_update", "rot_update"):
+            if not np.array_equal(dp[0][k], plain[0][k]):
+                err = np.abs(dp[0][k].astype(np.float64) - plain[0][k]).max()
+                raise AssertionError(f"dp dock {route}: {k} differs from the plain dock's (max "
+                                     f"abs {err:.3e})")
+        if rows_d != rows_p:
+            raise AssertionError(f"dp dock {route}: the CSV rows differ from the plain dock's")
+        log(f"# dp dock {route} 1AVX P={P} steps={STEPS} (NCCL, 1 rank; card {smi}): wall "
+            f"{wall_d:.3f} s against the plain dock's {wall_p:.3f} s (the --dp wall includes "
+            f"opening and closing the process group); poses, energies and rows bit-equal")
+        result = result or launches
+    return result
 
 
 def dp_sweep_phase(out_root):
     """The sweep CLI with --dp over SWEEP_IDS (trained mlsb weights, P
-    poses each): every row equal to the plain sweep's."""
+    poses each, the float32 kernel route): every row equal to the plain
+    sweep's."""
     argv = ["--ids", ",".join(SWEEP_IDS), "--ckpt", DEMO_NPZ, "--num-samples", str(P),
             "--num-steps", str(STEPS), "--seed", "3"]
     plain, wall_p, _ = run_path("plain sweep (dp reference)", DOCK_KERNELS, lambda: sweep.main(
-        argv + ["--out-csv", os.path.join(out_root, "dp_ref_sweep.csv")]))
+        argv + ["--out-csv", os.path.join(out_root, "dp_ref_sweep.csv")], FAST_F32), F32_ABSENT)
     rows, wall_d, launches = run_path("dp sweep", DOCK_KERNELS, lambda: sweep.main(
-        argv + ["--out-csv", os.path.join(out_root, "dp_sweep.csv"), "--dp"]))
+        argv + ["--out-csv", os.path.join(out_root, "dp_sweep.csv"), "--dp"], FAST_F32),
+        F32_ABSENT)
     if rows != plain or len(rows) != P * len(SWEEP_IDS):
         raise AssertionError(f"dp sweep: {len(rows)} rows, not equal to the plain sweep's")
     log(f"# dp sweep {','.join(SWEEP_IDS)} P={P}: wall {wall_d:.3f} s against the plain "
@@ -1971,8 +2256,9 @@ def bounds(inputs):
     """Least time the card could take for each kernel's work (ms): the bytes
     the function must move (each input read once, each output written once)
     over the HBM rate, or its operations over the rate of the units that do
-    them (FP32 for every kernel but fused_egcl, whose products run in three
-    bf16 passes on the tensor cores), whichever is larger."""
+    them (FP32 for every kernel but fused_egcl, whose products run on the
+    tensor cores in three bf16 passes, or one in its bf16 mode), whichever
+    is larger."""
     table_args, layer_args = inputs["table"], inputs["layer"]
     idx = table_args[0]
     p, n, k = idx.shape
@@ -2015,7 +2301,7 @@ def bounds(inputs):
         log(f"# bound {name}: {products * gemm / 1e9:.1f} GFLOP; "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
             + f"; bytes {n_bytes / HBM_BYTES_S * 1e3:.4f} ms; the row's bound: three bf16 "
-            "passes (the work the kernel does)")
+            "passes (the work the float32 mode does), one for the _bf16 row")
     energy = energy_bound(inputs["energy"])
     # select_topk: dist and y in (node_mask once), idx and edge_mask out;
     # operations: a selection is O(N) compares per row and phase: the kNN's
@@ -2026,6 +2312,8 @@ def bounds(inputs):
     passes = BF16_FLOP_S / EGCL_PASSES
     return {**edge_bounds, "fused_egcl": bound_ms(base, gemm, passes),
             "fused_egcl_coord": bound_ms(coord_bytes, 2 * gemm, passes),
+            "fused_egcl_bf16": bound_ms(base, gemm, BF16_FLOP_S),
+            "fused_egcl_coord_bf16": bound_ms(coord_bytes, 2 * gemm, BF16_FLOP_S),
             "fused_energy": energy, "select_topk": select,
             "kept": inputs["energy"][2] != 0}
 
@@ -2057,13 +2345,19 @@ def main():
     t0 = time.perf_counter()
     dfmdock_parity_phase(raw, device)
     log(f"# DFMDock-lineage parity: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bf16_parity_phase(raw, device)
+    log(f"# bf16 parity matrix and DFMDock bf16 parity: {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory() as out_root:
-        launches, steps_s = dock_phase(out_root)
-        sampler_steps_s = sampler_phase(raw, device)
+        docks = dock_phase(out_root)
+        launches, steps_s = docks["f32"]
+        launches16, steps_s16 = docks["bf16"]
+        sampler_rates = sampler_phase(raw, device)
         t0 = time.perf_counter()
         profile_phase(raw, device)
-        log(f"# profile: {time.perf_counter() - t0:.1f} s")
+        profile_phase(raw, device, mcfg=ModelConfig.fast())
+        log(f"# profiles (f32, bf16): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         rank_launches, inputs["energy"] = rank_phase(out_root)
         log(f"# ranking dock: {time.perf_counter() - t0:.1f} s")
@@ -2071,12 +2365,18 @@ def main():
         sweep_phase(out_root)
         log(f"# sweep: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        trained_phase(out_root)
+        trained_launches = trained_phase(out_root)
         log(f"# trained mlsb dock and sweep: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bf16_trained_phase(out_root, trained_launches)
+        log(f"# trained mlsb sweep bf16: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         dfmdock_sweep_phase(out_root)
         profile_phase(raw, device, lineage="dfmdock", ckpt=DFMDOCK_NPZ)
         log(f"# DFMDock-lineage sweeps and profile: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dfmdock_sweep_phase(out_root, bf16=True)
+        log(f"# DFMDock-lineage sweeps bf16: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         picard_phase(raw, device, out_root)
         log(f"# Picard: {time.perf_counter() - t0:.1f} s")
@@ -2104,12 +2404,16 @@ def main():
     route_launches = route_phase(raw, device)
     log(f"# kernel routes: {time.perf_counter() - t0:.1f} s")
 
-    # each kernel's launches from the main path that runs it
+    # each kernel's launches from the main path that runs it: the dock CLI's
+    # default (bf16) for the bf16 mode and the kernels both routes share, the
+    # float32 dock for the float32 mode
     path_launches = {
-        "edge_table": ("dock", launches), "fused_egcl": ("dock", launches),
-        "fused_egcl_coord": ("dock", launches),
+        "edge_table": ("dock", launches16), "fused_egcl": ("f32 dock", launches),
+        "fused_egcl_coord": ("f32 dock", launches),
+        "fused_egcl_bf16": ("dock", launches16),
+        "fused_egcl_coord_bf16": ("dock", launches16),
         "fused_energy": ("rank-by reranker", rank_launches),
-        "select_topk": ("dock", launches),
+        "select_topk": ("dock", launches16),
         "edge_bins": ("bins route", route_launches["bins"]),
     }
     # fused_energy against its plain version on the inputs the path gave it
@@ -2129,6 +2433,11 @@ def main():
                        lambda: fused_edge_layer_plain(*layer_args)),
         "fused_egcl_coord": (lambda: fused_edge_layer(*layer_args, coord),
                              lambda: fused_edge_layer_plain(*layer_args, coord)),
+        "fused_egcl_bf16": (lambda: fused_edge_layer(*layer_args, dtype=torch.bfloat16),
+                            lambda: fused_edge_layer_plain(*layer_args, dtype=torch.bfloat16)),
+        "fused_egcl_coord_bf16": (
+            lambda: fused_edge_layer(*layer_args, coord, dtype=torch.bfloat16),
+            lambda: fused_edge_layer_plain(*layer_args, coord, dtype=torch.bfloat16)),
         "fused_energy": (lambda: fused_energy(*inputs["energy"]),
                          lambda: fused_energy_plain(*inputs["energy"])),
         "select_topk": (lambda: select_topk(*inputs["select"]),
@@ -2177,8 +2486,9 @@ def main():
     t0 = time.perf_counter()
     remainder_phase(raw, device)
     log(f"# remainder: {time.perf_counter() - t0:.1f} s")
-    log(f"# total {time.perf_counter() - t_start:.1f} s; card {smi}; "
-        f"{steps_s:.2f} denoising steps/s (dock CLI), {sampler_steps_s:.2f} (sampler); "
+    log(f"# total {time.perf_counter() - t_start:.1f} s; card {smi}; denoising steps/s: dock "
+        f"CLI {steps_s16:.2f} (default, bf16) / {steps_s:.2f} (f32), sampler "
+        f"{sampler_rates['bf16']:.2f} / {sampler_rates['f32']:.2f}; "
         f"training steps/s at crop 448: mlsb {train_rates['mlsb']:.3f}, DFMDock "
         f"{train_rates['dfmdock']:.3f}; bf16 in the 20-step window: mlsb "
         f"{bf16_windows['mlsb']['steps_s']:.3f}, DFMDock {bf16_windows['dfmdock']['steps_s']:.3f}")

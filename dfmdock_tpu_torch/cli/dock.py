@@ -22,8 +22,11 @@ scores (ckpts/db5_cv/reranker.md).
   python -m dfmdock_tpu_torch.cli.dock --npz data/db5_npz/1QA9.npz --dp \
       --device cpu --world-size 2 --num-samples 4
 
-By default the EGCL stack runs through the CUDA kernels on `cuda`;
-`--exact` selects the eager float32 path and `--device cpu` the CPU.
+By default the forward runs through the CUDA kernels on `cuda` in bf16
+(`ModelConfig.fast()`, the JAX dock's default); `--exact` selects the eager
+float32 path and `--device cpu` the CPU.  `main(argv,
+model=ModelConfig.fast(compute_dtype="float32"))` runs the float32 kernel
+route.
 `--dp` splits the poses over the ranks of torch.distributed
 (parallel/mesh.py): one NCCL rank per visible GPU, or `--world-size` gloo
 ranks on the CPU (the JAX package's counterpart is
@@ -132,7 +135,11 @@ def _reranker_scores(net, raw, results, rows, weights_path, k_draws, seed, devic
     return Xz @ w
 
 
-def main(argv=None) -> list[dict]:
+def main(argv=None, model: ModelConfig | None = None) -> list[dict]:
+    """Parse `argv` and run.  `model` is the config of the kernel route
+    (default `ModelConfig.fast()`, bf16 as the JAX package's; a caller
+    passes `fast(compute_dtype="float32")` for the float32 kernel route);
+    `--exact` takes `ModelConfig()` whatever it says."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     src = ap.add_mutually_exclusive_group(required=True)
@@ -208,17 +215,17 @@ def main(argv=None) -> list[dict]:
     if args.dp:
         from dfmdock_tpu_torch.parallel import launch
 
-        return launch(_run, device, args.world_size, (args,))
-    return _run(None, args)
+        return launch(_run, device, args.world_size, (args, model))
+    return _run(None, args, model)
 
 
-def _run(world, args) -> list[dict]:
+def _run(world, args, model=None) -> list[dict]:
     """The dock on this process's device; under --dp one rank of `world`,
     of which rank 0 alone ranks the poses and writes."""
     device = resolve_device(args.device) if world is None else world.device
     main_rank = world is None or world.main
     cfg = DFMDockConfig(
-        model=ModelConfig() if args.exact else ModelConfig.fast(),
+        model=ModelConfig() if args.exact else model or ModelConfig.fast(),
         sampler=SamplerConfig(
             num_steps=args.num_steps,
             tr_noise_scale=args.tr_noise_scale,

@@ -12,8 +12,10 @@ The sweep is re-entrant: complexes already in the CSV are skipped with
 
 --lineage picks the score network: mlsb (ScoreNet) or dfmdock (the DFMDock
 lineage, DFMDockModel).  By default the forward runs through the CUDA
-kernels on `cuda`; `--exact` selects the eager float32 path and `--device
-cpu` the CPU.  `--dp` splits each complex's poses over the ranks of
+kernels on `cuda` in bf16 (`ModelConfig.fast()`, the JAX sweep's default);
+`--exact` selects the eager float32 path and `--device cpu` the CPU.
+`main(argv, model=ModelConfig.fast(compute_dtype="float32"))` runs the
+float32 kernel route.  `--dp` splits each complex's poses over the ranks of
 torch.distributed (one NCCL rank per visible GPU, or `--world-size` gloo
 ranks on the CPU); rank 0 writes the CSV and the PDBs.
 """
@@ -47,7 +49,11 @@ from dfmdock_tpu_torch.train.losses import _bce_logits, interface_labels
 DRAW_SEED_BASE, DRAW_SEED_STRIDE = 99, 1_000_003
 
 
-def main(argv=None) -> list[dict]:
+def main(argv=None, model: ModelConfig | None = None) -> list[dict]:
+    """Parse `argv` and run.  `model` is the config of the kernel route
+    (default `ModelConfig.fast()`, bf16 as the JAX package's; a caller
+    passes `fast(compute_dtype="float32")` for the float32 kernel route);
+    `--exact` takes `ModelConfig()` whatever it says."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--data-dir", default="data/db5_npz")
@@ -97,11 +103,11 @@ def main(argv=None) -> list[dict]:
     if args.dp:
         from dfmdock_tpu_torch.parallel import launch
 
-        return launch(_run, device, args.world_size, (args,))
-    return _run(None, args)
+        return launch(_run, device, args.world_size, (args, model))
+    return _run(None, args, model)
 
 
-def _run(world, args) -> list[dict]:
+def _run(world, args, model=None) -> list[dict]:
     """The sweep on this process's device; under --dp one rank of `world`.
     Every rank walks the same complexes and makes the same shared draws
     (start poses, the ground-truth probe, pose 0's trajectory run), so the
@@ -110,7 +116,7 @@ def _run(world, args) -> list[dict]:
     device = resolve_device(args.device) if world is None else world.device
     main_rank = world is None or world.main
     cfg = DFMDockConfig(
-        model=ModelConfig() if args.exact else ModelConfig.fast(),
+        model=ModelConfig() if args.exact else model or ModelConfig.fast(),
         sampler=SamplerConfig(
             num_steps=args.num_steps,
             tr_noise_scale=args.tr_noise_scale,

@@ -29,11 +29,12 @@ class ModelConfig:
     sample_size: int = 40
     # "bfloat16": each cast Linear rounds its input and weight to bf16 and
     # multiplies with a float32 result, as the JAX package's
-    # modules.linear(dtype) (models/modules.linear, compute_dtype).  The
-    # training forward (apply_train) always honours it; the predict forward
-    # and embed_nodes honour it on the eager route (use_pallas False); the
-    # kernel route computes in float32.  fast() keeps "bfloat16" for
-    # field-for-field equality with the JAX config; its numbers do not change.
+    # modules.linear(dtype) (models/modules.linear, compute_dtype).  Every
+    # forward honours it: training (apply_train), the eager predict route,
+    # and the kernel route (use_pallas), where ops/fused_egcl runs its
+    # single-pass bf16 mode, the JAX Pallas kernel's precision.  fast()
+    # computes so, as the JAX package's fast(); fast(compute_dtype=
+    # "float32") is the float32 kernel route.
     compute_dtype: str = "float32"
     # Inference path through the hand-written CUDA kernels (ops/edge_table.py,
     # ops/fused_egcl.py, ops/energy_head.py).  Off = the eager float32 path
@@ -56,7 +57,9 @@ class ModelConfig:
 
     @classmethod
     def fast(cls, **overrides) -> "ModelConfig":
-        """The default inference config of the dock CLI: the kernel path."""
+        """The default inference config of the dock CLI: the kernel path in
+        bf16, as the JAX package's (`compute_dtype="float32"` for the
+        float32 kernel route)."""
         kw = dict(
             compute_dtype="bfloat16", use_pallas=True, edge_table_kernel=True
         )

@@ -8,6 +8,15 @@
 // on the coord layer) is 2 C^2 FLOPs: at P = 16, N = 448, K = 60, C = 256
 // that is 56 GFLOP per product, against ~36 MB of inputs and outputs.
 //
+// Two precision modes (template parameter SINGLE):
+// - three passes (the float32 mode): f32-grade products, below;
+// - one pass (the bf16 mode): what the TPU kernel computes on its MXU.
+//   a_i, B[j], T_sp and T_p are rounded to bf16 (round to nearest) before
+//   pre is summed in f32 (the radial term stays f32); silu(pre) and m2g are
+//   rounded to bf16 and each product is one wgmma on the hi pieces alone
+//   (W as bf16, prepared hi-only); bias, silu, the gate, the masked K-sum
+//   and the coordinate sum stay f32, as in the TPU kernel.
+//
 // Design, for Hopper's tensor cores (sm_90a):
 // - Both products run on `wgmma.mma_async` m64n256k16, bf16 x bf16 -> f32,
 //   each in three passes on bf16 pieces, hi.hi + lo.hi + hi.lo with
@@ -155,16 +164,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// one bulk copy of a W slice (hi + lo) into a ring stage, completing on `bar`
-__device__ __forceinline__ void load_slice(void* dst, const void* src, uint64_t* bar) {
+// one bulk copy of a W slice (hi + lo, or hi alone) into a ring stage,
+// completing on `bar`
+__device__ __forceinline__ void load_slice(void* dst, const void* src, uint64_t* bar,
+                                           uint32_t bytes) {
   asm volatile(
       "{\n .reg .b64 state;\n"
       " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(SLICE_BYTES)
+      "r"(bytes)
       : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(SLICE_BYTES), "r"(smem_u32(bar))
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -205,6 +216,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// x rounded to bf16 (to nearest) and back: the bf16 mode's view of an input
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
+}
+
 __device__ __forceinline__ void split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   const __nv_bfloat162 l =
@@ -219,11 +236,14 @@ __device__ __forceinline__ int core_off(int r, int k, int width) {
   return (((r >> 3) * (width / 8) + (k >> 3)) << 6) + ((r & 7) << 3) + (k & 7);
 }
 
+template <bool SINGLE>
 struct Ring {
+  // bytes of one W slice in global memory and in a stage: hi + lo, or hi
+  static constexpr int BYTES = SINGLE ? PIECE * 2 : SLICE_BYTES;
   uint8_t* smem;
   uint64_t* full;
   uint64_t* empty;
-  const uint8_t* w1;   // prepared W_l1: [NSLICE][hi, lo][PIECE] bf16
+  const uint8_t* w1;   // prepared W_l1: [NSLICE][hi, lo][PIECE] bf16 ([NSLICE][hi] if SINGLE)
   const uint8_t* wc;   // prepared W_c0 (coord layer)
   int per_pair;        // slices per node pair: NSLICE x products
   int total;           // slices this block consumes
@@ -239,12 +259,13 @@ struct Ring {
     if (v >= STAGES) mbar_wait(&empty[st], ((v - STAGES) / STAGES) & 1);
     const int in_pair = v % per_pair;
     const uint8_t* w = in_pair < NSLICE ? w1 : wc;
-    load_slice(stage(st), w + (size_t)(in_pair % NSLICE) * SLICE_BYTES, &full[st]);
+    load_slice(stage(st), w + (size_t)(in_pair % NSLICE) * BYTES, &full[st], BYTES);
   }
 
-  // d = A . W over the NSLICE slices, three passes each.  a_at(sl) is the hi
-  // piece of slice sl's A columns (lo at + lo_off elements, rows SBO `sbo`
-  // apart); between(sl) runs while slice sl's wgmmas are in flight.
+  // d = A . W over the NSLICE slices, three passes each (one, hi . hi, if
+  // SINGLE).  a_at(sl) is the hi piece of slice sl's A columns (lo at +
+  // lo_off elements, rows SBO `sbo` apart); between(sl) runs while slice
+  // sl's wgmmas are in flight.
   template <class AAt, class Between>
   __device__ void product(float (&d)[128], AAt a_at, int lo_off, uint32_t sbo,
                           Between between) {
@@ -265,8 +286,10 @@ struct Ring {
         const uint64_t al = desc(a + lo_off + kk * 128, sbo);
         const uint64_t bh = desc(w + kk * 128, SBO_SLICE);
         const uint64_t bl = desc(w + PIECE + kk * 128, SBO_SLICE);
-        wgmma(d, al, bh);
-        wgmma(d, ah, bl);
+        if (!SINGLE) {
+          wgmma(d, al, bh);
+          wgmma(d, ah, bl);
+        }
         wgmma(d, ah, bh);
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -281,9 +304,10 @@ struct Ring {
 
 // Slices of pre for one warpgroup's node: `issue` stages the rows' KS
 // columns of slice sl (one cp.async group per slice, empty past the last),
-// `build` writes slice sl of A = silu(pre) as bf16 hi / lo.  Masked rows
-// are neither staged nor read: they are written as 0.
-template <bool COORD>
+// `build` writes slice sl of A = silu(pre) as bf16 hi / lo (hi alone, from
+// bf16-rounded rows, if SINGLE).  Masked rows are neither staged nor read:
+// they are written as 0.
+template <bool COORD, bool SINGLE>
 struct Gather {
   static constexpr int NT = staged_tables(COORD);
   const Meta& m;
@@ -349,7 +373,12 @@ struct Gather {
           x[4] = *reinterpret_cast<const float4*>(tsp_s + (PHI_OFFSET + eb[E_PB]) * C + col);
         }
         x[5] = *reinterpret_cast<const float4*>(st + T_P * ROWS * KS);
-        const float4 ai = *reinterpret_cast<const float4*>(m.a + col);
+        float4 ai = *reinterpret_cast<const float4*>(m.a + col);
+        if (SINGLE) {
+          ai = round_bf16(ai);
+#pragma unroll
+          for (int t = 0; t < 6; ++t) x[t] = round_bf16(x[t]);
+        }
         const float4 wr = *reinterpret_cast<const float4*>(wr_s + col);
         const float rad = m.geo[r * EGEO + G_RAD];
         float4 s = ai;
@@ -365,12 +394,12 @@ struct Gather {
       split(v[2], v[3], hi.y, lo.y);
       const int off = core_off(r, c4, KS);
       *reinterpret_cast<uint2*>(buf + off) = hi;
-      *reinterpret_cast<uint2*>(buf + ASLICE + off) = lo;
+      if (!SINGLE) *reinterpret_cast<uint2*>(buf + ASLICE + off) = lo;
     }
   }
 };
 
-template <bool COORD>
+template <bool COORD, bool SINGLE>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_egcl_kernel(const int* __restrict__ idx, const float* __restrict__ edge_mask,
                   const int* __restrict__ ebin, const float* __restrict__ egeo,
@@ -394,8 +423,8 @@ fused_egcl_kernel(const int* __restrict__ idx, const float* __restrict__ edge_ma
 
   const int pairs = (nodes + 1) / 2;
   const int my_pairs = blockIdx.x < pairs ? (pairs - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  Ring ring{smem_raw + L::ring, bars, bars + STAGES, w_l1, w_c0, NSLICE * (COORD ? 2 : 1),
-            0, 0};
+  Ring<SINGLE> ring{smem_raw + L::ring, bars, bars + STAGES, w_l1, w_c0,
+                    NSLICE * (COORD ? 2 : 1), 0, 0};
   ring.total = my_pairs * ring.per_pair;
   if (threadIdx.x == 0) {
     for (int st = 0; st < STAGES; ++st) {
@@ -439,7 +468,7 @@ fused_egcl_kernel(const int* __restrict__ idx, const float* __restrict__ edge_ma
 
     // 2. m2 = silu(silu(pre) . W_l1 + b_l1); the slices of silu(pre) are
     //    built one ahead of the wgmmas and staged two ahead
-    const Gather<COORD> g{m, wr_s, tsp_s, B, t_sp, t_p, pose_base,
+    const Gather<COORD, SINGLE> g{m, wr_s, tsp_s, B, t_sp, t_p, pose_base,
                           reinterpret_cast<float*>(area + 2 * 2 * ASLICE), area, tid};
     g.issue(0);
     g.issue(1);
@@ -517,17 +546,17 @@ fused_egcl_kernel(const int* __restrict__ idx, const float* __restrict__ edge_ma
     }
     if (!COORD) continue;
 
-    // 5. m2g as the A tile of the coord MLP
+    // 5. m2g as the A tile of the coord MLP (hi / lo, or hi if SINGLE)
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int c = 8 * i + cq;
       uint32_t hi, lo;
       split(d[4 * i], d[4 * i + 1], hi, lo);
       *reinterpret_cast<uint32_t*>(area + core_off(r_a, c, C)) = hi;
-      *reinterpret_cast<uint32_t*>(area + TILE + core_off(r_a, c, C)) = lo;
+      if (!SINGLE) *reinterpret_cast<uint32_t*>(area + TILE + core_off(r_a, c, C)) = lo;
       split(d[4 * i + 2], d[4 * i + 3], hi, lo);
       *reinterpret_cast<uint32_t*>(area + core_off(r_b, c, C)) = hi;
-      *reinterpret_cast<uint32_t*>(area + TILE + core_off(r_b, c, C)) = lo;
+      if (!SINGLE) *reinterpret_cast<uint32_t*>(area + TILE + core_off(r_b, c, C)) = lo;
     }
     fence_async_smem();
     bar_wg(wg);
@@ -563,14 +592,14 @@ fused_egcl_kernel(const int* __restrict__ idx, const float* __restrict__ edge_ma
   }
 }
 
-template <bool COORD>
+template <bool COORD, bool SINGLE>
 int launch(const int* idx, const float* edge_mask, const int* ebin, const float* egeo,
            const float* a, const float* B, const float* t_sp, const float* t_p,
            const float* w_r, const void* w_l1, const float* b_l1, const float* w_att,
            const float* b_att, const void* w_c0, const float* b_c0, const float* w_c1,
            float* agg, float* trans, int P, int N, int K, cudaStream_t stream) {
   const int smem = Layout<COORD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(fused_egcl_kernel<COORD>,
+  cudaError_t err = cudaFuncSetAttribute(fused_egcl_kernel<COORD, SINGLE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
@@ -580,7 +609,8 @@ int launch(const int* idx, const float* edge_mask, const int* ebin, const float*
   const int64_t nodes = (int64_t)P * N;
   const int64_t pairs = (nodes + 1) / 2;
   if (nodes > 0)
-    fused_egcl_kernel<COORD><<<(unsigned)(pairs < sms ? pairs : sms), THREADS, smem, stream>>>(
+    fused_egcl_kernel<COORD, SINGLE>
+        <<<(unsigned)(pairs < sms ? pairs : sms), THREADS, smem, stream>>>(
         idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r,
         static_cast<const uint8_t*>(w_l1), b_l1, w_att, b_att,
         static_cast<const uint8_t*>(w_c0), b_c0, w_c1, agg, trans, (int)nodes, N, K);
@@ -590,19 +620,22 @@ int launch(const int* idx, const float* edge_mask, const int* ebin, const float*
 }  // namespace
 
 // w_l1 / w_c0: the weights prepared by ops/fused_egcl.prepare_weight, bf16
-// hi / lo pieces in the ring's slice layout; t_sp has 100 rows.
+// hi / lo pieces (hi alone with `single`) in the ring's slice layout; t_sp
+// has 100 rows.  `single`: the one-pass bf16 mode.
 extern "C" int fused_egcl_launch(const int* idx, const float* edge_mask, const int* ebin,
                                  const float* egeo, const float* a, const float* B,
                                  const float* t_sp, const float* t_p, const float* w_r,
                                  const void* w_l1, const float* b_l1, const float* w_att,
                                  const float* b_att, const void* w_c0, const float* b_c0,
                                  const float* w_c1, float* agg, float* trans, int P, int N,
-                                 int K, int channels, int coord, void* stream) {
+                                 int K, int channels, int coord, int single, void* stream) {
   if (K < 1 || K > ROWS || channels != C) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define FUSED_EGCL_ARGS                                                                  \
+  idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l1, w_att, b_att, w_c0, b_c0, \
+      w_c1, agg, trans, P, N, K, s
   if (coord)
-    return launch<true>(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l1, w_att,
-                        b_att, w_c0, b_c0, w_c1, agg, trans, P, N, K, s);
-  return launch<false>(idx, edge_mask, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l1, w_att,
-                       b_att, w_c0, b_c0, w_c1, agg, trans, P, N, K, s);
+    return single ? launch<true, true>(FUSED_EGCL_ARGS) : launch<true, false>(FUSED_EGCL_ARGS);
+  return single ? launch<false, true>(FUSED_EGCL_ARGS) : launch<false, false>(FUSED_EGCL_ARGS);
+#undef FUSED_EGCL_ARGS
 }

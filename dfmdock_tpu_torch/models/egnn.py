@@ -9,7 +9,9 @@ Two forward paths share the parameters:
   kernels are held;
 - `egnn_apply_fused`: the inference path through `ops/fused_egcl`, which
   reads the per-step edge table of `ops/edge_table` (built by the edge_table
-  kernel, or by `build_edge_table_unfused` with that kernel off).
+  kernel, or by `build_edge_table_unfused` with that kernel off), in
+  float32 or, with `dtype` bfloat16, at the JAX package's Pallas route's
+  precision (its `egnn_apply_fused(dtype=)` and kernel).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from dfmdock_tpu_torch.features.positional import relpos_bin_at
 from dfmdock_tpu_torch.features.sixd import gather_rows, sixd_bins_at, spatial_embed_from_bins
 from dfmdock_tpu_torch.models.modules import GraphNorm, linear
 from dfmdock_tpu_torch.ops.edge_table import build_edge_table, edge_bins, edge_geometry
-from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer
+from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, rounding
 
 
 class EGCL(nn.Module):
@@ -118,11 +120,12 @@ def edge_stack(c, layers, spatial_w, positional_w, batch, pos, h, idx, edge_mask
     """The EGCL stack of a score network over the selected edges, on the
     route its config `c` names: the edge table (`c.edge_table_kernel`: one
     kernel, else its bins-only mode and torch geometry) and ops/fused_egcl
-    with `c.use_pallas` (or `fused`, where given), in float32; else the
-    eager layers, their products cast to `dtype` where given (training
-    takes these: the kernels are inference-only).  layers: the EGCL
-    modules; spatial_w [100, E] / positional_w [66, E]: the embed tables.
-    pos [P, N, 3, 3], h [P, N, C] -> (h, CA coordinates after the stack)."""
+    with `c.use_pallas` (or `fused`, where given); else the eager layers
+    (training takes these: the kernels are inference-only).  On either
+    route the products are cast to `dtype` where given, as the JAX
+    package's.  layers: the EGCL modules; spatial_w [100, E] / positional_w
+    [66, E]: the embed tables.  pos [P, N, 3, 3], h [P, N, C] -> (h, CA
+    coordinates after the stack)."""
     node_mask = batch["node_mask"]
     ca = pos[..., 1, :]
     if (c.use_pallas if fused is None else fused):
@@ -130,7 +133,7 @@ def edge_stack(c, layers, spatial_w, positional_w, batch, pos, h, idx, edge_mask
         ebin, egeo = build(idx, pos.contiguous(), batch["res_id"], batch["asym_id"],
                            normalize=c.normalize)
         return egnn_apply_fused(layers, spatial_w, positional_w, h, ca, idx, edge_mask,
-                                ebin, egeo, node_mask, lig_valid)
+                                ebin, egeo, node_mask, lig_valid, dtype)
     rp = relpos_bin_at(batch["res_id"], batch["asym_id"], idx)
     db, ob, tb, pb = sixd_bins_at(pos.detach(), idx)
     edge_attr = spatial_embed_from_bins(spatial_w, db, ob, tb, pb) + positional_w[rp.long()]
@@ -139,16 +142,21 @@ def edge_stack(c, layers, spatial_w, positional_w, batch, pos, h, idx, edge_mask
 
 
 def egnn_apply_fused(layers, spatial_w, positional_w, h, coord, idx, edge_mask,
-                     ebin, egeo, node_mask, lig_mask):
+                     ebin, egeo, node_mask, lig_mask, dtype=None):
     """The EGCL stack over the fused edge pipeline.
 
     spatial_w [100, E] and positional_w [66, E] are the embed tables; idx /
     edge_mask the selected edges, ebin / egeo the step's edge table.
-    Inference only."""
+    `dtype` (bfloat16) casts what the JAX package's `egnn_apply_fused`
+    casts: the a and B projections and the node MLP (`modules.linear`),
+    the embed tables (their float32 product with W_e rounded), and
+    ops/fused_egcl's products (its single-pass mode).  Inference only."""
+    rn = rounding(dtype)
     for layer in layers:
         w_hi, w_hj, w_r, w_e = layer.edge_weights()
-        a = h @ w_hi + layer.edge_mlp["l0"].bias
-        B = h @ w_hj
+        h_in = rn(h)
+        a = h_in @ rn(w_hi) + layer.edge_mlp["l0"].bias
+        B = h_in @ rn(w_hj)
         l1, att = layer.edge_mlp["l1"], layer.att_mlp["l0"]
         coord_params = None
         if layer.coord_mlp is not None:
@@ -158,7 +166,7 @@ def egnn_apply_fused(layers, spatial_w, positional_w, h, coord, idx, edge_mask,
             idx, edge_mask, ebin, egeo, a.contiguous(), B.contiguous(),
             (spatial_w @ w_e).contiguous(), (positional_w @ w_e).contiguous(),
             w_r.contiguous(), l1.weight.t().contiguous(), l1.bias,
-            att.weight[0], att.bias, coord_params,
+            att.weight[0], att.bias, coord_params, dtype,
         )
         if coord_params is None:
             agg_m = out
@@ -166,5 +174,5 @@ def egnn_apply_fused(layers, spatial_w, positional_w, h, coord, idx, edge_mask,
             agg_m, trans_sum = out
             count = edge_mask.sum(-1, keepdim=True).clamp(min=1.0)
             coord = coord + (trans_sum / count) * lig_mask[:, None]
-        h = layer.node_update(h, agg_m, node_mask)
+        h = layer.node_update(h, agg_m, node_mask, dtype)
     return h, coord

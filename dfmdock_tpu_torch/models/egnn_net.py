@@ -28,7 +28,8 @@ The net does not centre its input; `dfmdock.DFMDockModel` does.
 with `_core`'s scan over all N rows, masked to receptor x ligand pairs):
 eager, the node embedding and the EGNN's products cast as
 `cfg.compute_dtype` says (the pair heads stay float32, as in the JAX
-package; the predict forward casts alike on the eager route), dropout in
+package; the predict forward casts alike on either route, the kernel
+route's ops/fused_egcl in its single-pass bf16 mode), dropout in
 the scale MLPs, the pair heads and the distogram
 loss in checkpointed row chunks, and dedx = -dE/dpos through the explicit
 chain rule of `ScoreNet.apply_train`.
@@ -106,11 +107,10 @@ class EGNNNet(nn.Module):
         init_weights(self, generator)
         return self
 
-    def embed_nodes(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def embed_nodes(self, x: torch.Tensor) -> torch.Tensor:
         """h0 = single_embed(x); the sampler hoists it (batch['h0']).  Its
-        product is cast as the predict (or with `train` the training)
-        forward's (`compute_dtype`)."""
-        return linear(x, self.single_embed.weight, dtype=compute_dtype(self.cfg, train))
+        product is cast as the forwards' (`compute_dtype`)."""
+        return linear(x, self.single_embed.weight, dtype=compute_dtype(self.cfg))
 
     def forward(self, batch: dict, pos: torch.Tensor, t, *, generator=None,
                 gumbel=None, edges=None, scores_only: bool = False) -> dict:
@@ -178,7 +178,7 @@ class EGNNNet(nn.Module):
         p, n = pos.shape[:2]
         if dedx:
             pos = pos.detach().requires_grad_(True)
-        h = self.embed_nodes(batch["x"], train=True).expand(p, n, -1)
+        h = self.embed_nodes(batch["x"]).expand(p, n, -1)
         ca = pos[..., 1, :]
         dist = pairwise_ca_dist(pos).detach()
         if edges is None:
@@ -188,7 +188,7 @@ class EGNNNet(nn.Module):
         h, _ = edge_stack(
             c, self.egnn, self.spatial_embed.weight.t(), self.positional_embed.weight.t(),
             batch, pos, h, idx, edge_mask, lig_valid, fused=False,
-            dtype=compute_dtype(c, train=True))
+            dtype=compute_dtype(c))
 
         pair_valid = rec_valid[:, None] * lig_valid[None, :]
         energy_mask = pair_valid * (dist < c.cut_off)

@@ -16,12 +16,12 @@ from torch import nn
 LN_EPS = 1e-5  # torch nn.LayerNorm / PyG GraphNorm default
 
 
-def compute_dtype(cfg, train: bool = False) -> torch.dtype | None:
+def compute_dtype(cfg) -> torch.dtype | None:
     """The dtype a net's cast products take (`linear`'s `dtype`):
-    bfloat16 when `cfg.compute_dtype` says so, on the training forward
-    always and on the predict forward on the eager route only (the kernel
-    route, `cfg.use_pallas`, computes in float32); else None (float32)."""
-    if cfg.compute_dtype == "float32" or (cfg.use_pallas and not train):
+    bfloat16 when `cfg.compute_dtype` says so, on every route (the kernel
+    route's ops/fused_egcl in its single-pass bf16 mode, as the JAX
+    package's Pallas kernel); else None (float32)."""
+    if cfg.compute_dtype == "float32":
         return None
     return getattr(torch, cfg.compute_dtype)
 

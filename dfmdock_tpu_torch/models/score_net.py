@@ -13,9 +13,12 @@ Edge selection goes through ops/select_topk on every path.  With
 `cfg.use_pallas` the rest of the forward runs through the CUDA kernels: the
 edge table (ops/edge_table: the whole table, or with `edge_table_kernel`
 off its bins alone), the EGCL stack (ops/fused_egcl) and the energy head
-(ops/energy_head), in float32; otherwise through the eager path, whose
-products `cfg.compute_dtype` "bfloat16" casts as the JAX package does
-(`modules.compute_dtype`, `modules.linear`).
+(ops/energy_head); otherwise through the eager path.  On both routes
+`cfg.compute_dtype` "bfloat16" casts the products the JAX package casts
+(`modules.compute_dtype`, `modules.linear`): the embedding, the EGCL
+projections and node MLP, ops/fused_egcl's products (its single-pass mode)
+and the energy head's halves.  `ModelConfig.fast()` computes so, as the JAX
+package's; `fast(compute_dtype="float32")` is the float32 kernel route.
 
 Batch (tensors on the model's device): h0 [N, C] or x [N, F], node_mask [N]
 bool, lig_mask [N] f32, res_id / asym_id [N] int32.
@@ -108,12 +111,11 @@ class ScoreNet(nn.Module):
         init_weights(self, generator)
         return self
 
-    def embed_nodes(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def embed_nodes(self, x: torch.Tensor) -> torch.Tensor:
         """h0 = single_embed(x); static across steps and poses, so the
         sampler computes it once per complex and passes batch['h0'].  Its
-        product is cast as the predict (or with `train` the training)
-        forward's (`compute_dtype`)."""
-        return linear(x, self.single_embed.weight, dtype=compute_dtype(self.cfg, train))
+        product is cast as the forwards' (`compute_dtype`)."""
+        return linear(x, self.single_embed.weight, dtype=compute_dtype(self.cfg))
 
     def forward(self, batch: dict, pos: torch.Tensor, t, *, generator=None,
                 gumbel=None, edges=None, scores_only: bool = False) -> dict:
@@ -195,9 +197,9 @@ class ScoreNet(nn.Module):
             pos = pos - center.detach()[:, None, None, :]
         if dedx:
             pos = pos.detach().requires_grad_(True)
-        dtype = compute_dtype(c, train=True)
+        dtype = compute_dtype(c)
 
-        h = self.embed_nodes(batch["x"], train=True).expand(p, n, -1)
+        h = self.embed_nodes(batch["x"]).expand(p, n, -1)
         ca = pos[..., 1, :]
         dist = pairwise_ca_dist(pos).detach()
         if edges is None:
@@ -274,15 +276,20 @@ class ScoreNet(nn.Module):
         the first Linear split into its h_i / h_j halves; the kernel path
         through ops/energy_head, the eager path through its plain version
         (row chunks: [P, N, N, C] never materializes).  h [P, N, C],
-        pair_mask [P, N, N] -> [P].  With bf16 products (the eager route
-        of a bfloat16 config) the training forward's chunks compute it."""
+        pair_mask [P, N, N] -> [P].  With bf16 products the halves are cast
+        (`_energy_halves`), and on the eager route the training forward's
+        chunks compute the rest, its last product cast too; the kernel
+        route's ops/energy_head ports the JAX package's float32 Pallas head."""
         dtype = compute_dtype(self.cfg)
-        if dtype is not None:
+        if dtype is not None and not self.cfg.use_pallas:
             return self._energy_train(h, pair_mask, dtype)
-        c = h.shape[-1]
-        w = self.to_energy["l0"].weight  # [C, 2C]: h_i / h_j halves
-        hr = torch.matmul(h, w[:, :c].t())
-        hl = torch.matmul(h, w[:, c:].t())
+        if dtype is None:
+            c = h.shape[-1]
+            w = self.to_energy["l0"].weight  # [C, 2C]: h_i / h_j halves
+            hr = torch.matmul(h, w[:, :c].t())
+            hl = torch.matmul(h, w[:, c:].t())
+        else:
+            hr, hl, _ = self._energy_halves(h, dtype)
         ln = self.to_energy["ln"]
         energy = fused_energy if self.cfg.use_pallas else fused_energy_plain
         return energy(hr.contiguous(), hl.contiguous(), pair_mask.contiguous(),

@@ -15,12 +15,8 @@ import torch
 
 from dfmdock_tpu_torch.config import SamplerConfig
 from dfmdock_tpu_torch.diffusion import R3Diffuser, SO3Diffuser
-from dfmdock_tpu_torch.geom import (
-    axis_angle_to_matrix,
-    compose_axis_angle,
-    matrix_to_axis_angle,
-    random_rotation_matrix,
-)
+from dfmdock_tpu_torch.geom import axis_angle_to_matrix, compose_axis_angle, matrix_to_axis_angle
+from dfmdock_tpu_torch.geom.rotations import quaternion_to_matrix
 
 
 def _lig_center(pos, lig_mask, mode: str):
@@ -44,15 +40,26 @@ def randomize_pose(generator, pos, lig_mask, node_mask, cfg: SamplerConfig,
                    num_samples: int):
     """Random start poses: uniform SO(3) rotation of the ligand about its
     centroid + N(0, init_tr_sigma) translation to near the receptor centroid.
+    Draws a Gaussian quaternion [P, 4], then the translation's standard
+    normals [P, 1, 3], from `generator` (`place_pose` does the rest).
 
     pos [N, 3, 3] -> (pos [P, N, 3, 3], tr_update [P, 1, 3], rot_update [P, 1, 3])."""
+    quat = torch.randn((num_samples, 4), generator=generator, device=pos.device)
+    noise = torch.randn((num_samples, 1, 3), generator=generator, device=pos.device)
+    return place_pose(pos, lig_mask, node_mask, cfg, quat, noise)
+
+
+def place_pose(pos, lig_mask, node_mask, cfg: SamplerConfig, quat, noise):
+    """The start poses of `randomize_pose` from given draws: quat [P, 4]
+    Gaussian quaternions (the rotation, Haar-uniform once normalized) and
+    noise [P, 1, 3] standard normals (the translation), as the JAX package's
+    `randomize_pose` draws them from its keys."""
     valid = node_mask.to(torch.float32)
     lig = lig_mask * valid
     rec = (1.0 - lig_mask) * valid
     c2 = _lig_center(pos, lig, cfg.center_mode)
     c1 = _lig_center(pos, rec, cfg.center_mode)
-    rot = random_rotation_matrix(generator, (num_samples,), device=pos.device)
-    noise = torch.randn((num_samples, 1, 3), generator=generator, device=pos.device)
+    rot = quaternion_to_matrix(quat)
     tr_update = noise * cfg.init_tr_sigma - c2 + c1
     new = _rotate_ligand(pos[None], lig, rot, c2[None], tr_update[:, 0])
     return new, tr_update, matrix_to_axis_angle(rot)[:, None, :]

@@ -14,7 +14,16 @@ the 128-residue bucket):
   record's order), so seed 5 repeats the record's draws;
 - `jax-f32`: the same in float32 (the JAX sweep's --exact);
 - `port`: dfmdock_tpu_torch's sweep, --exact on the CPU, from weights.npz;
-- `port-cuda`: the same sweep through the kernels on a CUDA card;
+- `port-cuda`: the same sweep through the kernels on a CUDA card, on the
+  float32 kernel route (`ModelConfig.fast(compute_dtype="float32")`);
+- `port-cuda-bf16`: the sweep CLI's default on the card, the kernel route
+  in bf16 (`ModelConfig.fast()`), the JAX package's own precision;
+- `port-cuda-bf16-jax-draws`: the `port-cuda-bf16` sweep with the JAX
+  record's own start poses and SDE noise injected (`place_pose`,
+  `EMSampler.sample(noise=)`), read from the file that
+  scripts/export_jax_draws.py writes for seeds 5-10; the edges' Gumbel
+  noise stays the port's own (the card generator seeded by --seed, as the
+  sweep's);
 - `port-exact-cuda`: the `port` side's eager float32 path on a CUDA card
   (TF32 off): the CPU side's arithmetic in another summation order, without
   the kernels;
@@ -98,10 +107,15 @@ def jax_side(ids, seed, num_samples, num_steps, dtype):
 
 
 PORT_ROUTES = {"port": ["--device", "cpu", "--exact"], "port-cuda": ["--device", "cuda"],
+               "port-cuda-bf16": ["--device", "cuda"],
                "port-exact-cuda": ["--device", "cuda", "--exact"]}
+# the kernel route's config where a side names one (else the sweep's default)
+PORT_MODELS = {"port-cuda": dict(compute_dtype="float32")}
+JAX_DRAWS = os.path.join(CKPT, "jax_draws.npz")
 
 
 CPU_DRAW_SIDES = {"port-cuda-cpu-draws": False, "port-exact-cuda-cpu-draws": True}
+JAX_DRAWS_SIDE = "port-cuda-bf16-jax-draws"
 
 
 class CPUDraws:
@@ -146,7 +160,7 @@ def port_cpu_draws_side(ids, seed, num_samples, num_steps, exact, device="cuda")
     from dfmdock_tpu_torch.sampler.em import randomize_pose
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = DFMDockConfig(model=ModelConfig() if exact else ModelConfig.fast(),
+    cfg = DFMDockConfig(model=ModelConfig() if exact else ModelConfig.fast(compute_dtype="float32"),
                         sampler=SamplerConfig(num_steps=num_steps))
     device = torch.device(device)
     net = load_model(os.path.join(CKPT, "weights.npz"), cfg, device, lineage="dfmdock")
@@ -170,18 +184,68 @@ def port_cpu_draws_side(ids, seed, num_samples, num_steps, exact, device="cuda")
     return groups_of(rows)
 
 
+def jax_draws_side(ids, seed, num_samples, num_steps, device="cuda"):
+    """The sweep of `port-cuda-bf16` (the kernel route at bf16) with the JAX
+    record's start poses and SDE noise at `seed` (export_jax_draws.py's
+    file): each complex's draws are the ones the record's key gives it, the
+    Gumbel noise of the edges comes from one generator seeded by `seed` on
+    `device`, as the sweep's."""
+    import torch
+
+    from dfmdock_tpu_torch.cli.common import build_sampler, dock_complex, load_model
+    from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
+    from dfmdock_tpu_torch.data.batching import round_up
+    from dfmdock_tpu_torch.data.dataset import NPZDataset, batch_to_tensors, complex_to_batch
+    from dfmdock_tpu_torch.sampler.em import place_pose
+
+    draws = np.load(JAX_DRAWS)
+    cfg = DFMDockConfig(model=ModelConfig.fast(), sampler=SamplerConfig(num_steps=num_steps))
+    device = torch.device(device)
+    sampler = build_sampler(load_model(os.path.join(CKPT, "weights.npz"), cfg, device,
+                                       lineage="dfmdock"), cfg)
+    generator = torch.Generator(device).manual_seed(seed)
+    ds, rows = NPZDataset(DATA), []
+    for cid in (i for i in ds.ids if i in ids):
+        d = {k: torch.from_numpy(draws[f"s{seed}/{cid}/{k}"]).to(device)
+             for k in ("quat", "tr", "z_rot", "z_tr")}
+        saved = (d["quat"].shape[0], d["z_rot"].shape[0])
+        if num_samples > saved[0] or num_steps > saved[1]:
+            raise SystemExit(f"{JAX_DRAWS} holds {saved[0]} poses x {saved[1]} steps, fewer "
+                             f"than {num_samples} x {num_steps}")
+        # the first poses and steps (the record's draws only at 40 x 40)
+        d = {"quat": d["quat"][:num_samples], "tr": d["tr"][:num_samples],
+             "z_rot": d["z_rot"][:num_steps, :num_samples],
+             "z_tr": d["z_tr"][:num_steps, :num_samples]}
+        raw = ds.load_raw(ds.ids.index(cid))
+        n = raw["rec_x"].shape[0] + raw["lig_x"].shape[0]
+        pad_to = round_up(n, BUCKET)
+        batch = batch_to_tensors(complex_to_batch(raw, pad_to=pad_to), device)
+        init = place_pose(batch["pos"], batch["lig_mask"], batch["node_mask"], cfg.sampler,
+                          d["quat"], d["tr"])
+        recs, _, _ = dock_complex(
+            sampler, raw, generator, num_samples, device,
+            native=(raw["rec_pos"], raw["lig_pos"]), pad_to=pad_to,
+            run_fn=lambda b, g: sampler.sample(b, num_samples, g, init=init,
+                                               noise=(d["z_rot"], d["z_tr"])))
+        rows += recs
+    return groups_of(rows)
+
+
 def port_side(ids, seed, num_samples, num_steps, side):
     import torch
 
     from dfmdock_tpu_torch.cli import sweep
+    from dfmdock_tpu_torch.config import ModelConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     route = PORT_ROUTES[side]
+    model = ModelConfig.fast(**PORT_MODELS[side]) if side in PORT_MODELS else None
     with tempfile.TemporaryDirectory() as tmp:
         rows = sweep.main(["--lineage", "dfmdock", "--ckpt", os.path.join(CKPT, "weights.npz"),
                            "--data-dir", DATA, "--ids", ",".join(ids), "--num-samples",
                            str(num_samples), "--num-steps", str(num_steps), "--seed",
-                           str(seed), "--out-csv", os.path.join(tmp, "sweep.csv")] + route)
+                           str(seed), "--out-csv", os.path.join(tmp, "sweep.csv")] + route,
+                          model)
     return groups_of(rows)
 
 
@@ -259,16 +323,18 @@ def main(argv=None):
     if not set(ids) <= set(RECORD_ORDER):
         ap.error(f"--ids must be among {RECORD_ORDER}")
     sides = args.sides.split(",")
-    if not set(sides) <= {"jax-bf16", "jax-f32", *PORT_ROUTES, *CPU_DRAW_SIDES}:
-        ap.error(f"--sides takes jax-bf16, jax-f32, {', '.join(PORT_ROUTES)} and "
-                 f"{', '.join(CPU_DRAW_SIDES)}")
+    if not set(sides) <= {"jax-bf16", "jax-f32", *PORT_ROUTES, *CPU_DRAW_SIDES, JAX_DRAWS_SIDE}:
+        ap.error(f"--sides takes jax-bf16, jax-f32, {', '.join(PORT_ROUTES)}, "
+                 f"{', '.join(CPU_DRAW_SIDES)} and {JAX_DRAWS_SIDE}")
     record = {k: g for k, g in record_groups().items() if k in ids}
     print(f"# JAX record (v5e): {fmt(record)}", flush=True)
     runs = {s: [] for s in sides}
     for seed in (int(s) for s in args.seeds.split(",")):
         for side in sides:
             t0 = time.perf_counter()
-            if side in CPU_DRAW_SIDES:
+            if side == JAX_DRAWS_SIDE:
+                g = jax_draws_side(ids, seed, args.num_samples, args.num_steps)
+            elif side in CPU_DRAW_SIDES:
                 g = port_cpu_draws_side(ids, seed, args.num_samples, args.num_steps,
                                         CPU_DRAW_SIDES[side])
             elif side.startswith("port"):

@@ -77,7 +77,8 @@ def port_side(out_dir):
     from dfmdock_tpu_torch.data.dataset import NPZDataset
 
     device = torch.device("cuda")
-    cfg = DFMDockConfig(model=ModelConfig.fast(), sampler=SamplerConfig(num_steps=STEPS))
+    cfg = DFMDockConfig(model=ModelConfig.fast(compute_dtype="float32"),
+                        sampler=SamplerConfig(num_steps=STEPS))
     net = load_model(os.path.join(CKPT, "weights.npz"), cfg, device, lineage="dfmdock")
     sampler = build_sampler(net, cfg)
     ds = NPZDataset(DATA)

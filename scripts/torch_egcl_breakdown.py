@@ -17,8 +17,9 @@ Prints the card's name and power limit, ptxas's resource lines for the
 kernel as shipped (`-Xptxas -v`) and the count of tensor-core (HGMMA) and
 bulk-copy (UBLKCP) instructions in its SASS (`cuobjdump -sass`), then one
 line per variant and body with CUDA-event and profiler device times per
-launch.  Only the full variant computes the function; the others are
-timings, not results.
+launch, for both precision modes (three passes, and the single-pass bf16
+mode: `_bf16`).  Only the full variant computes the function; the others
+are timings, not results.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ from dfmdock_tpu_torch.data.convert import load_npz_complex  # noqa: E402
 from dfmdock_tpu_torch.ops import _build  # noqa: E402
 from dfmdock_tpu_torch.ops import fused_egcl as fe  # noqa: E402
 
-PRODUCTS = "        wgmma(d, al, bh);\n        wgmma(d, ah, bl);\n        wgmma(d, ah, bh);\n"
+PRODUCTS = ("        if (!SINGLE) {\n          wgmma(d, al, bh);\n          wgmma(d, ah, bl);\n"
+            "        }\n        wgmma(d, ah, bh);\n")
 GATHER = ("    if (m.valid[r]) {", "if (m.valid[r])\n            cp_async16(")
 
 
@@ -108,11 +110,16 @@ def main():
               f"{int((edge_mask > 0.5).sum())}/{edge_mask.numel()}", flush=True)
         for name, so in libs.items():
             fn = ctypes.CDLL(so).fused_egcl_launch
-            fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fe._lib = lambda fn=fn: fn
-            for body, call in (("fused_egcl", lambda: fe.fused_edge_layer(*args)),
-                               ("fused_egcl_coord", lambda: fe.fused_edge_layer(*args, coord))):
+            bf16 = torch.bfloat16
+            for body, call in (
+                    ("fused_egcl", lambda: fe.fused_edge_layer(*args)),
+                    ("fused_egcl_coord", lambda: fe.fused_edge_layer(*args, coord)),
+                    ("fused_egcl_bf16", lambda: fe.fused_edge_layer(*args, dtype=bf16)),
+                    ("fused_egcl_coord_bf16",
+                     lambda: fe.fused_edge_layer(*args, coord, dtype=bf16))):
                 print(f"# {name} {body}: {cs.time_ms(call):.4f} ms/launch (events), device "
                       f"{cs.device_ms(call):.4f} ms", flush=True)
     return 0

@@ -2,7 +2,8 @@
 
     python3 scripts/torch_parity_repeats.py [--runs 24]
 
-The case: ScoreNet through the kernels (ModelConfig.fast(), seeded weights,
+The case: ScoreNet through the float32 kernel route
+(ModelConfig.fast(compute_dtype="float32"), seeded weights,
 full width) on 1AVX padded to N = 448, its native pose and one random pose,
 on injected edges, t = 0.1, against the plain path on the CPU (chip_smoke's
 `parity_inputs`, `parity_errors` and tolerances).  This process builds the
@@ -38,6 +39,7 @@ from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig  # noqa: E402
 from dfmdock_tpu_torch.data.convert import load_npz_complex  # noqa: E402
 from dfmdock_tpu_torch.ops import _build  # noqa: E402
 
+CFG = DFMDockConfig(model=ModelConfig.fast(compute_dtype="float32"))
 T = 0.1
 
 
@@ -47,7 +49,7 @@ def reference(path):
     raw = load_npz_complex(os.path.join(ROOT, cs.NPZ))
     batch, pos, edges, _ = cs.parity_inputs(raw, device)
     cpu = lambda d: {k: v.cpu() for k, v in d.items()}
-    net_p = load_model(None, DFMDockConfig(model=ModelConfig.fast()), torch.device("cpu"))
+    net_p = load_model(None, CFG, torch.device("cpu"))
     with torch.no_grad():
         ref = net_p(cpu(batch), pos.cpu(), T, edges=tuple(e.cpu() for e in edges))
     torch.save({"batch": cpu(batch), "pos": pos.cpu(), "edges": tuple(e.cpu() for e in edges),
@@ -59,7 +61,7 @@ def child(path):
     case = torch.load(path)
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    net_k = load_model(None, DFMDockConfig(model=ModelConfig.fast()), device)
+    net_k = load_model(None, CFG, device)
     batch = {k: v.to(device) for k, v in case["batch"].items()}
     edges = tuple(e.to(device) for e in case["edges"])
     with torch.no_grad(), cs.recording_kernels() as calls:

@@ -34,9 +34,10 @@ SMALL); deterministic edges (kNN only: torch and JAX RNGs cannot match);
 JAX's one-hot bf16 `gather_rows` replaced by an exact gather (its backward
 rounds the cotangent to bf16: ROADMAP F5).
 
-The route rule: the kernel route (`use_pallas`, `ModelConfig.fast()`)
-computes in float32 whatever `compute_dtype` says; the eager predict route
-and the training forward honour it.
+The route rule: every forward honours `compute_dtype`, the kernel route
+(`use_pallas`, `ModelConfig.fast()`) too, where ops/fused_egcl runs its
+single-pass bf16 mode; `fast(compute_dtype="float32")` is the float32
+kernel route (tests/test_torch_fast_bf16.py holds fast() against JAX's).
 """
 import dataclasses
 
@@ -138,13 +139,13 @@ def test_linear_at_layer_width(shape):
 
 
 def test_compute_dtype_route_rule():
-    """bf16 on the training forward always, on the predict forward on the
-    eager route only; float32 configs never cast."""
+    """bf16 wherever the config says so, the kernel route too; float32
+    configs never cast; fast() is bf16, as the JAX package's."""
     assert compute_dtype(ModelConfig()) is None
-    assert compute_dtype(ModelConfig(), train=True) is None
     assert compute_dtype(ModelConfig(**BF16)) is torch.bfloat16
-    assert compute_dtype(ModelConfig.fast()) is None
-    assert compute_dtype(ModelConfig.fast(), train=True) is torch.bfloat16
+    assert compute_dtype(ModelConfig.fast()) is torch.bfloat16
+    assert compute_dtype(ModelConfig.fast(compute_dtype="float32")) is None
+    assert dataclasses.asdict(ModelConfig.fast())["compute_dtype"] == "bfloat16"
 
 
 @pytest.mark.parametrize("update_coords", [False, True])
@@ -311,24 +312,87 @@ def test_eager_predict_matches_jax(lineage):
     assert int(got["num_clashes"][0]) == int(want["num_clashes"])
 
 
+def composed_stack(net, batch, pos, edges, dtype):
+    """The kernel route's embedding and EGCL stack written out from the
+    plain kernels: in float32 (dtype None) with the float32 route's own
+    products (a = h W_hi + b, B = h W_hj, the tables' float32 products,
+    the three-pass mode's plain version), with bf16 as the JAX package's
+    `egnn_apply_fused(dtype=)` (`modules.linear` products, the kernel's
+    single-pass mode).  Returns (h0, h, CA coordinates)."""
+    from dfmdock_tpu_torch.ops.edge_table import build_edge_table_plain
+    from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer_plain
+
+    c = net.cfg
+    idx, edge_mask = edges
+    lig = batch["lig_mask"] * batch["node_mask"].float()
+    h0 = linear(batch["x"], net.single_embed.weight, dtype=dtype)
+    h, coord = h0.expand(pos.shape[0], -1, -1), pos[..., 1, :]
+    ebin, egeo = build_edge_table_plain(idx, pos, batch["res_id"], batch["asym_id"],
+                                        normalize=c.normalize)
+    for layer in net.egnn:
+        w_hi, w_hj, w_r, w_e = layer.edge_weights()
+        b0, l1, att = layer.edge_mlp["l0"].bias, layer.edge_mlp["l1"], layer.att_mlp["l0"]
+        if dtype is None:
+            a, B = h @ w_hi + b0, h @ w_hj
+        else:
+            a, B = linear(h, w_hi.t(), b0, dtype), linear(h, w_hj.t(), dtype=dtype)
+        coord_params = None if layer.coord_mlp is None else (
+            layer.coord_mlp["l0"].weight.t(), layer.coord_mlp["l0"].bias,
+            layer.coord_mlp["l1"].weight[0])
+        out = fused_edge_layer_plain(
+            idx, edge_mask, ebin, egeo, a, B, net.spatial_embed.weight.t() @ w_e,
+            net.positional_embed.weight.t() @ w_e, w_r, l1.weight.t(), l1.bias, att.weight[0],
+            att.bias, coord_params, dtype)
+        agg = out if coord_params is None else out[0]
+        if coord_params is not None:
+            count = edge_mask.sum(-1, keepdim=True).clamp(min=1.0)
+            coord = coord + (out[1] / count) * lig[:, None]
+        h = layer.node_update(h, agg, batch["node_mask"], dtype)
+    return h0, h, coord
+
+
 @pytest.mark.parametrize("lineage", ["mlsb", "dfmdock"])
-def test_kernel_route_ignores_compute_dtype(lineage):
-    """fast() computes in float32 whatever compute_dtype says: its
-    embedding and every output bit-equal at bfloat16 and at float32."""
+def test_kernel_route_follows_compute_dtype(lineage):
+    """fast() (bf16) and fast(compute_dtype="float32") on the same weights
+    and edges, on CPU tensors (the kernels' plain versions): each route's
+    embedding and EGCL stack equal to their composition from the plain
+    kernels (`composed_stack`; float32 the float32 route's own products),
+    the mlsb energy head's halves cast alike, and the two routes' outputs
+    apart."""
     from _torch_parity import SMALL
+    from dfmdock_tpu_torch.models.edges import select_edges
+    from dfmdock_tpu_torch.models.egnn import edge_stack
+    from dfmdock_tpu_torch.ops.energy_head import fused_energy_plain
 
     net_cls = ScoreNet if lineage == "mlsb" else EGNNNet
     batch = port_batch(padded(40, 30, seed=9))
-    outs = []
-    for dtype in ("bfloat16", "float32"):
-        net = net_cls(ModelConfig.fast(compute_dtype=dtype, **SMALL))
+    pos = batch["pos"][None]
+    edges = select_edges(torch.cdist(pos[..., 1, :], pos[..., 1, :]), batch["node_mask"], 20,
+                         0)
+    outs = {}
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (None, "float32")):
+        net = net_cls(ModelConfig.fast(compute_dtype=name, **SMALL))
         net.init_weights(torch.Generator().manual_seed(3))
+        lig = batch["lig_mask"] * batch["node_mask"].float()
         with torch.no_grad():
             h0 = net.embed_nodes(batch["x"])
-            out = net({**batch, "h0": h0}, batch["pos"][None], 0.3,
-                      generator=torch.Generator().manual_seed(1))
-        outs.append({"h0": h0, **out})
-    assert sorted(outs[0]) == sorted(outs[1])
-    for k in outs[0]:
-        assert torch.equal(outs[0][k], outs[1][k]), k
-    assert dataclasses.asdict(ModelConfig.fast())["compute_dtype"] == "bfloat16"
+            h, coord = edge_stack(net.cfg, net.egnn, net.spatial_embed.weight.t(),
+                                  net.positional_embed.weight.t(), batch, pos, h0.expand(1, -1, -1),
+                                  *edges, lig, dtype=compute_dtype(net.cfg))
+            want = composed_stack(net, batch, pos, edges, dtype)
+            for got, ref, what in zip((h0, h, coord), want, ("h0", "h", "coord")):
+                assert torch.equal(got, ref), f"{name} {what}"
+            if lineage == "mlsb":
+                c = h.shape[-1]
+                w, ln = net.to_energy["l0"].weight, net.to_energy["ln"]
+                mask = (1.0 - lig)[:, None] * lig[None, :] * torch.ones(1, 1, 1)
+                e = net._energy(h, mask)
+                halves = ((h @ w[:, :c].t(), h @ w[:, c:].t()) if dtype is None else
+                          (linear(h, w[:, :c], dtype=dtype), linear(h, w[:, c:], dtype=dtype)))
+                assert torch.equal(e, fused_energy_plain(*halves, mask, ln.weight, ln.bias,
+                                                         net.to_energy["l1"].weight[0]))
+            outs[name] = net({**batch, "h0": h0}, pos, 0.3, edges=edges)
+    for k, v in outs["float32"].items():
+        assert torch.isfinite(v.float()).all() and torch.isfinite(outs["bfloat16"][k].float()).all()
+    for k in ("tr_score", "rot_score", "f", "energy"):
+        assert not torch.equal(outs["bfloat16"][k], outs["float32"][k]), k

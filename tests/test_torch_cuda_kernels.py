@@ -347,6 +347,36 @@ def test_fused_egcl(dev, coord, poses, n_rec, n_lig, pad_to):
         assert torch.equal(o, o2)
 
 
+BF16_REL = 1e-3
+
+
+@pytest.mark.parametrize("coord", [False, True])
+@pytest.mark.parametrize("poses,n_rec,n_lig,pad_to", [(16, 223, 172, 448), (2, 24, 16, 64)])
+def test_fused_egcl_bf16(dev, coord, poses, n_rec, n_lig, pad_to):
+    """The single-pass bf16 mode against fused_edge_layer_plain(dtype=bf16):
+    both round the same values to bf16 (round to nearest), so they differ
+    where the float32 sums ahead of a rounding, in another order, or the
+    kernel's fast-math silu tip a value across a bf16 rounding boundary
+    (one bf16 step on that element).  Within BF16_REL of the largest plain
+    value (a CPU emulation, silu perturbed by 2e-7 of itself at the dock's
+    shapes, moves the outputs by <= 9.5e-5 of their largest; the float32
+    mode lies ~3e-3 away); finite though masked geometry is NaN; two
+    launches bit-equal; counted as bf16 launches."""
+    args, coord_params = egcl_inputs(dev, poses, n_rec, n_lig, pad_to, seed=3)
+    extra = (coord_params,) if coord else ()
+    counter = "bf16_coord_launches" if coord else "bf16_launches"
+    before = getattr(fused_edge_layer, counter)
+    out = fused_edge_layer(*args, *extra, dtype=torch.bfloat16)
+    again = fused_edge_layer(*args, *extra, dtype=torch.bfloat16)
+    ref = fused_edge_layer_plain(*args, *extra, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert getattr(fused_edge_layer, counter) == before + 2
+    for o, o2, rf in zip(*((x if coord else (x,)) for x in (out, again, ref))):
+        assert torch.isfinite(o).all()
+        assert (o - rf).abs().max() <= BF16_REL * rf.abs().max()
+        assert torch.equal(o, o2)
+
+
 @pytest.mark.parametrize("coord,pad_to", [(False, 512), (True, 448)], ids=["agg-N512", "coord-N448"])
 def test_fused_egcl_forty_poses(dev, coord, pad_to):
     """40 poses a launch: the DFMDock lineage's agg-only layers at the

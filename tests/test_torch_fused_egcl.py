@@ -2,8 +2,10 @@
 the CUDA kernel is held against on the card) vs the JAX package:
 
 - against the Pallas fused_edge_layer in interpret mode, which runs its
-  products in bf16: bf16 tolerances as tests/test_pallas_ops.py states them
-  (rtol 5e-2, atol 2e-3, here relative to the output's magnitude);
+  products in bf16: the float32 mode at bf16 tolerances as
+  tests/test_pallas_ops.py states them (rtol 5e-2, atol 2e-3, here relative
+  to the output's magnitude), the single-pass bf16 mode, which rounds as
+  the Pallas kernel does, within 1e-3 of the output's largest;
 - through the port's fused EGCL layer against the JAX eager f32 egcl_apply
   on the same parameters and bins: rtol 1e-4 (f32 on both sides)."""
 import jax
@@ -57,13 +59,11 @@ def graph(n_rec, n_lig, pad_to, seed):
     return b, pos, idx, mask, np.asarray(tab)
 
 
-@pytest.mark.parametrize("coord", [False, True])
-@pytest.mark.parametrize("n_rec,n_lig,pad_to,seed", [(20, 12, 64, 3), (50, 40, 128, 5)])
-def test_plain_matches_jax_pallas_kernel(coord, n_rec, n_lig, pad_to, seed):
+def layer_case(coord, n_rec, n_lig, pad_to, seed):
     """Inputs as the model makes them: a layer of egcl_init weights
-    (N(0, 0.02)) applied to unit-normal node features.  The raw squared
-    edge length enters the edge MLP, so agg runs to ~1e2 here: the bf16
-    atol is taken relative to the output's magnitude (2e-3 * max |ref|)."""
+    (N(0, 0.02)) applied to unit-normal node features, the embed tables'
+    product with W_e in float32.  Returns (JAX's Pallas fused_edge_layer
+    outputs, the port's wrapper's arguments but for `dtype`)."""
     b, pos, idx, mask, tab = graph(n_rec, n_lig, pad_to, seed)
     n, k = idx.shape
     key = jax.random.PRNGKey(seed)
@@ -75,27 +75,87 @@ def test_plain_matches_jax_pallas_kernel(coord, n_rec, n_lig, pad_to, seed):
     w_e = w0[2 * C + 1 :]
     sp_w = jax.random.normal(jax.random.fold_in(key, 2), (100, E_DIM)) * 0.02
     rp_w = jax.random.normal(jax.random.fold_in(key, 3), (66, E_DIM)) * 0.02
-    t_sp = (sp_w @ w_e).astype(jnp.bfloat16)
-    t_p = (rp_w @ w_e).astype(jnp.bfloat16)
+    t_sp, t_p = sp_w @ w_e, rp_w @ w_e
     l1, att = p["edge_mlp"]["l1"], p["att_mlp"]["l0"]
     wc = ((p["coord_mlp"]["l0"]["w"], p["coord_mlp"]["l0"]["b"],
            p["coord_mlp"]["l1"]["w"][:, 0]) if coord else None)
     out_j = jf.fused_edge_layer(
-        jnp.asarray(tab), a, B, t_sp, t_p, w0[2 * C][None], l1["w"], l1["b"][None],
-        att["w"][:, 0][None], att["b"][None], k=k,
+        jnp.asarray(tab), a, B, t_sp.astype(jnp.bfloat16), t_p.astype(jnp.bfloat16),
+        w0[2 * C][None], l1["w"], l1["b"][None], att["w"][:, 0][None], att["b"][None], k=k,
         coord_params=(wc[0], wc[1][None], wc[2][None]) if coord else None)
     T = lambda x: torch.from_numpy(np.array(x, np.float32))
-    out_p = fused_edge_layer(*port_table(tab, n, k), T(a)[None], T(B)[None], T(t_sp),
-                             T(t_p), T(w0[2 * C]), T(l1["w"]), T(l1["b"]),
-                             T(att["w"][:, 0]), T(att["b"]),
-                             tuple(map(T, wc)) if coord else None)
-    if not coord:
-        out_j, out_p = (out_j,), (out_p,)
-    for j, o in zip(out_j, out_p):
+    args = (*port_table(tab, n, k), T(a)[None], T(B)[None], T(t_sp), T(t_p), T(w0[2 * C]),
+            T(l1["w"]), T(l1["b"]), T(att["w"][:, 0]), T(att["b"]),
+            tuple(map(T, wc)) if coord else None)
+    return (out_j if coord else (out_j,)), args
+
+
+LAYER_CASES = [(20, 12, 64, 3), (50, 40, 128, 5)]
+
+
+@pytest.mark.parametrize("coord", [False, True])
+@pytest.mark.parametrize("n_rec,n_lig,pad_to,seed", LAYER_CASES)
+def test_plain_matches_jax_pallas_kernel(coord, n_rec, n_lig, pad_to, seed):
+    """The float32 mode against the Pallas kernel, which runs its products
+    in bf16 (the tables rounded to bf16 on the port's side too, as the
+    JAX package passes them).  The raw squared edge length enters the edge
+    MLP, so agg runs to ~1e2 here: the bf16 atol is taken relative to the
+    output's magnitude (2e-3 * max |ref|)."""
+    out_j, args = layer_case(coord, n_rec, n_lig, pad_to, seed)
+    bf = lambda x: x.to(torch.bfloat16).float()
+    args = (*args[:6], bf(args[6]), bf(args[7]), *args[8:])
+    out_p = fused_edge_layer(*args)
+    for j, o in zip(out_j, out_p if coord else (out_p,)):
         scale = np.abs(np.asarray(j)).max()
         assert scale > 1e-4
         np.testing.assert_allclose(o[0].numpy(), np.asarray(j), rtol=5e-2,
                                    atol=2e-3 * scale)
+
+
+BF16_LAYER_REL = 1e-3
+
+
+@pytest.mark.parametrize("coord", [False, True])
+@pytest.mark.parametrize("n_rec,n_lig,pad_to,seed", LAYER_CASES)
+def test_plain_bf16_matches_jax_pallas_kernel(coord, n_rec, n_lig, pad_to, seed):
+    """The single-pass bf16 mode (`dtype=torch.bfloat16`) against the
+    Pallas kernel in interpret mode: both round a, B, the tables, silu(pre)
+    and m2g to bf16 (round to nearest) and both products' weights, so they
+    differ only where the float32 sums ahead of a rounding (pre, in another
+    order; the TPU kernel's radial term is a truncated hi/lo split, ~2^-15
+    relative) tip a value across a bf16 rounding boundary.  Every output
+    within BF16_LAYER_REL of its largest (measured worst 3.0e-4 of the
+    largest, the coord update at the small shape; agg <= 1.4e-4), while
+    the float32 mode lies 1.7e-3 to 5.0e-3 of the largest away from JAX
+    here, so the tolerance tells the modes apart."""
+    out_j, args = layer_case(coord, n_rec, n_lig, pad_to, seed)
+    out_b = fused_edge_layer(*args, dtype=torch.bfloat16)
+    out_f = fused_edge_layer(*args)
+    worst_f32 = 0.0
+    for j, o, f in zip(out_j, *((x if coord else (x,)) for x in (out_b, out_f))):
+        j = np.asarray(j, np.float64)
+        scale = np.abs(j).max()
+        assert scale > 1e-4
+        err = np.abs(o[0].numpy() - j).max()
+        assert err <= BF16_LAYER_REL * scale, f"{err / scale:.3e}"
+        worst_f32 = max(worst_f32, np.abs(f[0].numpy() - j).max() / scale)
+    assert worst_f32 > BF16_LAYER_REL
+
+
+def test_wrapper_modes():
+    """float32 (None) and bfloat16 are the two modes; another dtype raises,
+    and on the CPU no kernel launch is counted."""
+    b, pos, idx, mask, tab = graph(20, 12, 64, 3)
+    g = torch.Generator().manual_seed(1)
+    n, k = idx.shape
+    r = lambda *s: torch.randn(s, generator=g) * 0.2
+    args = (*port_table(tab, n, k), r(1, n, C), r(1, n, C), r(100, C), r(66, C), r(C),
+            r(C, C), r(C), r(C), r(1))
+    before = (fused_edge_layer.launches, fused_edge_layer.bf16_launches)
+    assert not torch.equal(fused_edge_layer(*args), fused_edge_layer(*args, dtype=torch.bfloat16))
+    assert (fused_edge_layer.launches, fused_edge_layer.bf16_launches) == before
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_edge_layer(*args, dtype=torch.float16)
 
 
 @pytest.mark.parametrize("update_coords", [False, True])
@@ -151,8 +211,9 @@ def test_masked_edges_drop_by_selection():
 def test_prepare_weight_layout_and_split(c):
     """The weight as the CUDA kernel streams it: element (out n, in k) of
     W^T at the offset the kernel's wgmma descriptors read (slice k // SLICE_K,
-    8 x 8 core matrices, hi then lo piece), hi the round-to-nearest bf16 of
-    W and hi + lo within 2^-16 of W.  A three-pass product on the pieces
+    8 x 8 core matrices, hi then lo piece; the single-pass mode's layout
+    the hi pieces alone), hi the round-to-nearest bf16 of W and hi + lo
+    within 2^-16 of W.  A three-pass product on the pieces
     (hi.hi + lo.hi + hi.lo, exact products summed in float64) lies within
     1e-4 of the f32 product, relative to its largest value."""
     g = torch.Generator().manual_seed(c)
@@ -165,6 +226,8 @@ def test_prepare_weight_layout_and_split(c):
     hi, lo = prepared[k // SLICE_K, 0, off], prepared[k // SLICE_K, 1, off]
     torch.testing.assert_close(hi, w.t().to(torch.bfloat16).float(), rtol=0, atol=0)
     assert ((hi + lo) - w.t()).abs().max() <= 2.0 ** -16 * w.abs().max()
+    # the single-pass mode streams the hi piece alone, in the same order
+    assert torch.equal(prepare_weight(w, single=True), prepare_weight(w)[:, :1])
     x = torch.nn.functional.silu(torch.randn((64, c), generator=g) * 2.0)
     (xh, xl), (wh, wl) = split_bf16(x), split_bf16(w)
     d = lambda t: t.double()

@@ -3,6 +3,8 @@ draws: with the CPU as their device and the eager route, a sweep of two
 complexes (the generator running on from one to the next) gives the `port`
 side's rows bit for bit.  This is what lets the card's run with the CPU
 generator's draws be compared with the CPU run pose for pose (ROADMAP F4).
+The side with the JAX record's draws (scripts/export_jax_draws.py's file)
+runs on the CPU at a small size.
 """
 import os
 import sys
@@ -21,3 +23,11 @@ def test_cpu_draws_side_repeats_the_port_sides_draws():
     assert sorted(got) == sorted(want) == sorted(ids)
     for cid in ids:
         np.testing.assert_array_equal(got[cid], want[cid], err_msg=cid)
+
+
+def test_jax_draws_side_runs_on_the_cpu():
+    """One pose x one step of 1ZHI at seed 5 on the CPU (the kernel route's
+    plain versions): one finite row."""
+    got = witness.jax_draws_side(["1ZHI"], 5, 1, 1, device="cpu")
+    assert sorted(got) == ["1ZHI"] and got["1ZHI"].shape == (1, 2)
+    assert np.isfinite(got["1ZHI"]).all()

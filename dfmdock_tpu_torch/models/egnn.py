@@ -23,7 +23,7 @@ from dfmdock_tpu_torch.features.positional import relpos_bin_at
 from dfmdock_tpu_torch.features.sixd import gather_rows, sixd_bins_at, spatial_embed_from_bins
 from dfmdock_tpu_torch.models.modules import GraphNorm, linear
 from dfmdock_tpu_torch.ops.edge_table import build_edge_table, edge_bins, edge_geometry
-from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, rounding
+from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, prepare_layer, rounding
 
 
 class EGCL(nn.Module):
@@ -141,6 +141,34 @@ def edge_stack(c, layers, spatial_w, positional_w, batch, pos, h, idx, edge_mask
                       normalize=c.normalize, dtype=dtype)
 
 
+def fused_weights(layer, spatial_w, positional_w, dtype=None, kernel=False):
+    """One layer's step-invariant operands on the fused route: the rounded
+    projections W_hi / W_hj, w_r, the tables T_sp = spatial_w @ W_e and
+    T_p = positional_w @ W_e, W_l1 and W_c0 transposed, and with `kernel`
+    their kernel-side form (ops/fused_egcl.prepare_layer).  Under no_grad
+    they are built once per set of weights and kept on the layer, keyed on
+    each parameter's storage and version (an in-place update rebuilds
+    them); with gradients on they are built in the call."""
+    coord = layer.coord_mlp is not None
+    params = (layer.edge_mlp["l0"].weight, layer.edge_mlp["l1"].weight, spatial_w,
+              positional_w) + ((layer.coord_mlp["l0"].weight,) if coord else ())
+    key = (dtype, kernel, tuple((t.data_ptr(), t.device, t._version) for t in params))
+    cached = getattr(layer, "_fused_weights", None)
+    if cached is not None and cached[0] == key and not torch.is_grad_enabled():
+        return cached[1]
+    rn = rounding(dtype)
+    w_hi, w_hj, w_r, w_e = layer.edge_weights()
+    w = {"w_hi": rn(w_hi), "w_hj": rn(w_hj), "w_r": w_r.contiguous(),
+         "t_sp": (spatial_w @ w_e).contiguous(), "t_p": (positional_w @ w_e).contiguous(),
+         "w_l1": layer.edge_mlp["l1"].weight.t().contiguous(),
+         "w_c0": layer.coord_mlp["l0"].weight.t().contiguous() if coord else None}
+    w["kernel"] = (prepare_layer(w["t_sp"], w["t_p"], w["w_l1"], w["w_c0"], dtype)
+                   if kernel else None)
+    if not torch.is_grad_enabled():
+        layer._fused_weights = (key, w)
+    return w
+
+
 def egnn_apply_fused(layers, spatial_w, positional_w, h, coord, idx, edge_mask,
                      ebin, egeo, node_mask, lig_mask, dtype=None):
     """The EGCL stack over the fused edge pipeline.
@@ -150,23 +178,27 @@ def egnn_apply_fused(layers, spatial_w, positional_w, h, coord, idx, edge_mask,
     `dtype` (bfloat16) casts what the JAX package's `egnn_apply_fused`
     casts: the a and B projections and the node MLP (`modules.linear`),
     the embed tables (their float32 product with W_e rounded), and
-    ops/fused_egcl's products (its single-pass mode).  Inference only."""
+    ops/fused_egcl's products (its single-pass mode, which reads B as bf16:
+    rounded here, once per layer).  The weights' step-invariant forms come
+    from `fused_weights`.  Inference only."""
     rn = rounding(dtype)
+    kernel = h.device.type == "cuda"
     for layer in layers:
-        w_hi, w_hj, w_r, w_e = layer.edge_weights()
+        w = fused_weights(layer, spatial_w, positional_w, dtype, kernel)
         h_in = rn(h)
-        a = h_in @ rn(w_hi) + layer.edge_mlp["l0"].bias
-        B = h_in @ rn(w_hj)
+        a = h_in @ w["w_hi"] + layer.edge_mlp["l0"].bias
+        B = h_in @ w["w_hj"]
+        if dtype is not None:
+            B = B.to(dtype)
         l1, att = layer.edge_mlp["l1"], layer.att_mlp["l0"]
         coord_params = None
         if layer.coord_mlp is not None:
             c0, c1 = layer.coord_mlp["l0"], layer.coord_mlp["l1"]
-            coord_params = (c0.weight.t().contiguous(), c0.bias, c1.weight[0])
+            coord_params = (w["w_c0"], c0.bias, c1.weight[0])
         out = fused_edge_layer(
-            idx, edge_mask, ebin, egeo, a.contiguous(), B.contiguous(),
-            (spatial_w @ w_e).contiguous(), (positional_w @ w_e).contiguous(),
-            w_r.contiguous(), l1.weight.t().contiguous(), l1.bias,
-            att.weight[0], att.bias, coord_params, dtype,
+            idx, edge_mask, ebin, egeo, a.contiguous(), B.contiguous(), w["t_sp"], w["t_p"],
+            w["w_r"], w["w_l1"], l1.bias, att.weight[0], att.bias, coord_params, dtype,
+            prepared=w["kernel"],
         )
         if coord_params is None:
             agg_m = out

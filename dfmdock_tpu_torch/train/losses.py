@@ -78,12 +78,14 @@ def draw_perturbation(r3, so3, exp: ExperimentConfig, generator, device, injecte
     and scalings (score_model_mlsb.py:66-94): (t, tr_scale, tr_update [1, 3],
     tr_score_gt [1, 3], rot_scale, rot_update [1, 3], rot_score_gt [1, 3]),
     tensors on `device`.  `injected` supplies every value (the keys of
-    PERTURBATION_KEYS)."""
+    PERTURBATION_KEYS), taken in the default dtype (float32, or float64 in a
+    float64 replay of a step)."""
     if injected is not None:
-        f32 = lambda k: torch.as_tensor(injected[k], dtype=torch.float32, device=device)
-        return (f32("t"), f32("tr_scale"), f32("tr_update").reshape(1, 3),
-                f32("tr_score_gt").reshape(1, 3), f32("rot_scale"),
-                f32("rot_update").reshape(1, 3), f32("rot_score_gt").reshape(1, 3))
+        val = lambda k: torch.as_tensor(injected[k], dtype=torch.get_default_dtype(),
+                                        device=device)
+        return (val("t"), val("tr_scale"), val("tr_update").reshape(1, 3),
+                val("tr_score_gt").reshape(1, 3), val("rot_scale"),
+                val("rot_update").reshape(1, 3), val("rot_score_gt").reshape(1, 3))
     t = torch.rand((), generator=generator, device=device) * (1.0 - _EPS_T) + _EPS_T
     one, zero = torch.ones((), device=device), torch.zeros((1, 3), device=device)
     if exp.perturb_tr:

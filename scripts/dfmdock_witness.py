@@ -21,7 +21,7 @@ the 128-residue bucket):
 - `port-cuda-bf16-jax-draws`: the `port-cuda-bf16` sweep with the JAX
   record's own start poses and SDE noise injected (`place_pose`,
   `EMSampler.sample(noise=)`), read from the file that
-  scripts/export_jax_draws.py writes for seeds 5-10; the edges' Gumbel
+  scripts/export_jax_draws.py writes for seeds 5-30; the edges' Gumbel
   noise stays the port's own (the card generator seeded by --seed, as the
   sweep's);
 - `port-exact-cuda`: the `port` side's eager float32 path on a CUDA card
@@ -39,7 +39,9 @@ Prints one line per run and side: each complex's mean DockQ over all poses,
 its best and its min-energy pick, then the means of each side over all runs
 beside the record (eval_train.csv, made on a TPU v5e).  `--summarize DIR`
 reads the per-pose CSVs of earlier runs (`--out-dir DIR`) and prints each
-side and seed over all the complexes it covers.  Imports JAX; it is
+side and seed over all the complexes it covers, then for every two sides
+that share seeds the per-seed mean DockQ and pick mean of both and their
+paired difference with its standard error.  Imports JAX; it is
 not part of the port.  A 40-pose sweep of 4POU takes minutes per side.
 """
 from __future__ import annotations
@@ -299,7 +301,33 @@ def summarize(out_dir):
                   f"pick mean {means[:, 2].mean():.4f} (sd "
                   f"{means[:, 2].std(ddof=1) if len(seeds) > 1 else 0:.4f}); energy-DockQ "
                   f"rank correlation by complex, mean over seeds: {corr}")
+    names = sorted(runs)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            paired(a, runs[a], b, runs[b])
     return 0
+
+
+def paired(side_a, by_seed_a, side_b, by_seed_b):
+    """Per seed the mean DockQ and pick mean of two sides over the same
+    complexes, and their paired difference (a - b, same seed): its mean,
+    standard error (sd / sqrt(seeds)) and the mean over that error."""
+    seeds = sorted(sd for sd in set(by_seed_a) & set(by_seed_b)
+                   if sorted(by_seed_a[sd]) == sorted(by_seed_b[sd]))
+    if len(seeds) < 2:
+        return
+    a = np.array([overall(by_seed_a[sd])[:3] for sd in seeds])[:, [0, 2]]
+    b = np.array([overall(by_seed_b[sd])[:3] for sd in seeds])[:, [0, 2]]
+    for sd, x, y in zip(seeds, a, b):
+        print(f"# paired, seed {sd}: {side_a} mean {x[0]:.4f} pick {x[1]:.4f}; {side_b} "
+              f"mean {y[0]:.4f} pick {y[1]:.4f}; difference {x[0] - y[0]:+.4f} / "
+              f"{x[1] - y[1]:+.4f}")
+    diff = a - b
+    se = diff.std(0, ddof=1) / np.sqrt(len(seeds))
+    print(f"# paired over {len(seeds)} seeds ({seeds[0]}-{seeds[-1]}): {side_a} - {side_b}: "
+          f"mean DockQ {diff[:, 0].mean():+.4f} (se {se[0]:.4f}, {diff[:, 0].mean() / se[0]:+.2f} "
+          f"se), pick mean {diff[:, 1].mean():+.4f} (se {se[1]:.4f}, "
+          f"{diff[:, 1].mean() / se[1]:+.2f} se)")
 
 
 def main(argv=None):

@@ -1,6 +1,6 @@
 """The JAX package's own random draws of the DFMDock witness sweeps, saved for the port.
 
-    python3 scripts/export_jax_draws.py [--seeds 5,6,7,8,9,10] [--out FILE]
+    python3 scripts/export_jax_draws.py [--seeds 5,6,...,30] [--out FILE]
 
 For each seed and each complex of the JAX record eval_train.csv (in the
 record's order, ckpts/db5_holdout_dfmdock), the key the record's sweep gave
@@ -13,7 +13,8 @@ rotation and translation normals [1, 3] (`SO3Diffuser.reverse_step`,
 `R3Diffuser.reverse_step`, before the noise scale).  The edges' Gumbel
 noise (40 steps of [40, N, N]) is not saved.
 
-Writes one npz (default ckpts/db5_holdout_dfmdock/jax_draws.npz, ~1 MB):
+Writes one npz (default ckpts/db5_holdout_dfmdock/jax_draws.npz, ~3.9 MB
+for the default seeds 5-30):
 for each seed s and complex c, `s{s}/{c}/quat` [P, 4], `s{s}/{c}/tr` [P, 1,
 3], `s{s}/{c}/z_rot` and `s{s}/{c}/z_tr` [steps, P, 1, 3], float32, the
 layout of the port's `EMSampler.sample(noise=)`.  scripts/dfmdock_witness.py
@@ -32,6 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "ckpts", "db5_holdout_dfmdock", "jax_draws.npz")
 RECORD_ORDER = ("1AVX", "1ZHI", "2SNI", "4POU")  # the record sweep's ids, in order
 NUM_SAMPLES = NUM_STEPS = 40
+SEEDS = range(5, 31)  # the witness seeds the committed file holds
 
 
 def pose_draws(key, num_steps):
@@ -80,7 +82,7 @@ def record_draws(seeds, num_samples=NUM_SAMPLES, num_steps=NUM_STEPS):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--seeds", default="5,6,7,8,9,10")
+    ap.add_argument("--seeds", default=",".join(map(str, SEEDS)))
     ap.add_argument("--out", default=OUT)
     args = ap.parse_args(argv)
     draws = record_draws([int(s) for s in args.seeds.split(",")])

@@ -71,8 +71,8 @@ def launch():
         "select_topk": cs.select_topk(dist, y, batch["node_mask"], 20, 40),
         "edge_table": cs.build_edge_table(*table, normalize=True),
         "edge_bins": cs.edge_bins(*table),
-        "fused_egcl": cs.fused_edge_layer(*layer),
-        "fused_egcl_coord": cs.fused_edge_layer(*layer, coord),
+        "fused_egcl": cs.kernel_layer(layer),
+        "fused_egcl_coord": cs.kernel_layer(layer, coord),
         "fused_energy": cs.fused_energy(*energy),
     }
     torch.cuda.synchronize()

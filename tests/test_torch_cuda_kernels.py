@@ -26,7 +26,11 @@ from dfmdock_tpu_torch.features.sixd import SPATIAL_DIM, pairwise_ca_dist, sixd_
 from dfmdock_tpu_torch.models.edges import sample_gumbel, select_edges, select_y
 from dfmdock_tpu_torch.ops import edge_table as et
 from dfmdock_tpu_torch.ops.energy_head import fused_energy, fused_energy_plain
-from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, fused_edge_layer_plain
+from dfmdock_tpu_torch.ops.fused_egcl import (
+    fused_edge_layer,
+    fused_edge_layer_plain,
+    prepare_layer,
+)
 from dfmdock_tpu_torch.ops.select_topk import select_topk, select_topk_plain
 from dfmdock_tpu_torch.sampler.em import randomize_pose
 
@@ -322,6 +326,14 @@ def egcl_inputs(dev, poses, n_rec, n_lig, pad_to, seed):
     return args, (r(c, c, scale=w), r(c, scale=0.1), r(c, scale=w))
 
 
+def kernel_layer(args, coord_params=None, dtype=None):
+    """fused_edge_layer's kernel on fused_edge_layer_plain's arguments, the
+    layer's t_sp, t_p, w_l1 and w_c0 prepared for the mode first."""
+    w_c0 = None if coord_params is None else coord_params[0]
+    prepared = prepare_layer(args[6], args[7], args[9], w_c0, dtype)
+    return fused_edge_layer(*args, coord_params, dtype=dtype, prepared=prepared)
+
+
 @pytest.mark.parametrize("coord", [False, True])
 @pytest.mark.parametrize("poses,n_rec,n_lig,pad_to", [(16, 223, 172, 448),  # the dock's shapes
                                                       (2, 24, 16, 64)])     # small, masked
@@ -335,8 +347,8 @@ def test_fused_egcl(dev, coord, poses, n_rec, n_lig, pad_to):
     extra = (coord_params,) if coord else ()
     counter = "coord_launches" if coord else "launches"
     before = getattr(fused_edge_layer, counter)
-    out = fused_edge_layer(*args, *extra)
-    again = fused_edge_layer(*args, *extra)
+    out = kernel_layer(args, *extra)
+    again = kernel_layer(args, *extra)
     ref = fused_edge_layer_plain(*args, *extra)
     torch.cuda.synchronize()
     assert getattr(fused_edge_layer, counter) == before + 2
@@ -347,11 +359,42 @@ def test_fused_egcl(dev, coord, poses, n_rec, n_lig, pad_to):
         assert torch.equal(o, o2)
 
 
+def test_fused_egcl_reads_prepared_weights(dev):
+    """On CUDA tensors the kernel reads t_sp, t_p, w_l1 and w_c0 from
+    `prepared` alone: a call without it raises rather than preparing them."""
+    args, coord_params = egcl_inputs(dev, 1, 24, 16, 64, seed=3)
+    for dtype in (None, torch.bfloat16):
+        with pytest.raises(ValueError, match="prepared"):
+            fused_edge_layer(*args, coord_params, dtype=dtype)
+
+
 BF16_REL = 1e-3
 
 
+def check_bf16_layer(args, coord_params, coord):
+    """fused_edge_layer's bf16 mode on `args`: within BF16_REL of the
+    largest plain value, finite, two launches bit-equal, counted."""
+    extra = (coord_params,) if coord else ()
+    counter = "bf16_coord_launches" if coord else "bf16_launches"
+    before = getattr(fused_edge_layer, counter)
+    out = kernel_layer(args, *extra, dtype=torch.bfloat16)
+    again = kernel_layer(args, *extra, dtype=torch.bfloat16)
+    ref = fused_edge_layer_plain(*args, *extra, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert getattr(fused_edge_layer, counter) == before + 2
+    for o, o2, rf in zip(*((x if coord else (x,)) for x in (out, again, ref))):
+        assert torch.isfinite(o).all()
+        assert (o - rf).abs().max() <= BF16_REL * rf.abs().max()
+        assert torch.equal(o, o2)
+    return out
+
+
 @pytest.mark.parametrize("coord", [False, True])
-@pytest.mark.parametrize("poses,n_rec,n_lig,pad_to", [(16, 223, 172, 448), (2, 24, 16, 64)])
+@pytest.mark.parametrize("poses,n_rec,n_lig,pad_to", [(16, 223, 172, 448),  # the dock's
+                                                      (2, 24, 16, 64),      # small, masked
+                                                      (4, 64, 40, 128),     # the parity
+                                                      (4, 130, 100, 256),   # matrix's
+                                                      (4, 223, 172, 640)])  # buckets
 def test_fused_egcl_bf16(dev, coord, poses, n_rec, n_lig, pad_to):
     """The single-pass bf16 mode against fused_edge_layer_plain(dtype=bf16):
     both round the same values to bf16 (round to nearest), so they differ
@@ -363,18 +406,43 @@ def test_fused_egcl_bf16(dev, coord, poses, n_rec, n_lig, pad_to):
     mode lies ~3e-3 away); finite though masked geometry is NaN; two
     launches bit-equal; counted as bf16 launches."""
     args, coord_params = egcl_inputs(dev, poses, n_rec, n_lig, pad_to, seed=3)
-    extra = (coord_params,) if coord else ()
-    counter = "bf16_coord_launches" if coord else "bf16_launches"
-    before = getattr(fused_edge_layer, counter)
-    out = fused_edge_layer(*args, *extra, dtype=torch.bfloat16)
-    again = fused_edge_layer(*args, *extra, dtype=torch.bfloat16)
-    ref = fused_edge_layer_plain(*args, *extra, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    assert getattr(fused_edge_layer, counter) == before + 2
-    for o, o2, rf in zip(*((x if coord else (x,)) for x in (out, again, ref))):
-        assert torch.isfinite(o).all()
-        assert (o - rf).abs().max() <= BF16_REL * rf.abs().max()
-        assert torch.equal(o, o2)
+    check_bf16_layer(args, coord_params, coord)
+
+
+def first_nodes(args, n_keep):
+    """The layer's inputs cut to the first n_keep nodes of each pose, the
+    edges to a dropped node masked (idx 0, geometry NaN)."""
+    idx, edge_mask, ebin, egeo, a, B, *rest = args
+    idx, edge_mask = idx[:, :n_keep].clone(), edge_mask[:, :n_keep].clone()
+    gone = idx >= n_keep
+    idx[gone], edge_mask[gone] = 0, 0.0
+    egeo = egeo[:, :n_keep].clone()
+    egeo[gone] = float("nan")
+    return (idx, edge_mask, ebin[:, :n_keep].contiguous(), egeo,
+            a[:, :n_keep].contiguous(), B[:, :n_keep].contiguous(), *rest)
+
+
+@pytest.mark.parametrize("coord", [False, True])
+@pytest.mark.parametrize("poses,n_keep,k", [
+    (1, 63, 60),    # an odd node count: the last pair half empty
+    (3, 63, 60),    # 189 nodes: 95 pairs, the last one half empty
+    (2, 64, 20),    # K = 20 < 64
+    (7, 63, 33),    # both at once
+])
+def test_fused_egcl_bf16_edge_cases(dev, coord, poses, n_keep, k):
+    """The bf16 mode where its design could go wrong: a last node pair
+    that is half empty, K below the 64-row tile, masked rows, and a node
+    whose every edge is masked (its agg and trans exactly 0)."""
+    args, coord_params = egcl_inputs(dev, poses, 24, 16, 64, seed=5)
+    args = first_nodes(args, n_keep)
+    idx, edge_mask, ebin, egeo = (t[:, :, :k].contiguous() for t in args[:4])
+    edge_mask[0, 3] = 0.0
+    egeo[0, 3] = float("nan")
+    args = (idx, edge_mask, ebin, egeo, *args[4:])
+    assert (edge_mask[:, :, :k] < 0.5).any() and (edge_mask > 0.5).any()
+    out = check_bf16_layer(args, coord_params, coord)
+    for o in (out if coord else (out,)):
+        assert torch.equal(o[0, 3], torch.zeros_like(o[0, 3]))
 
 
 @pytest.mark.parametrize("coord,pad_to", [(False, 512), (True, 448)], ids=["agg-N512", "coord-N448"])
@@ -385,8 +453,8 @@ def test_fused_egcl_forty_poses(dev, coord, pad_to):
     finite, two launches bit-equal."""
     args, coord_params = egcl_inputs(dev, 40, 223, 172, pad_to, seed=7)
     extra = (coord_params,) if coord else ()
-    out = fused_edge_layer(*args, *extra)
-    again = fused_edge_layer(*args, *extra)
+    out = kernel_layer(args, *extra)
+    again = kernel_layer(args, *extra)
     ref = fused_edge_layer_plain(*args, *extra)
     torch.cuda.synchronize()
     pairs = zip(out, again, ref) if coord else [(out, again, ref)]

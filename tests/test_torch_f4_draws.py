@@ -259,12 +259,12 @@ def test_exported_draws_are_the_jax_samplers():
 
 
 def test_committed_draws_file():
-    """The committed npz is what the script writes for seeds 5-10, and holds
-    the record's 4 complexes x 40 poses x 40 steps per seed."""
+    """The committed npz is what the script writes for its seeds (5-30), and
+    holds the record's 4 complexes x 40 poses x 40 steps per seed."""
     if not os.path.exists(export.OUT):
         pytest.fail(f"{export.OUT} is missing: run scripts/export_jax_draws.py")
     saved = np.load(export.OUT)
-    want = export.record_draws(range(5, 11))
+    want = export.record_draws(export.SEEDS)
     assert sorted(saved.files) == sorted(want)
     for k, v in want.items():
         np.testing.assert_array_equal(saved[k], v, err_msg=k)

@@ -23,12 +23,18 @@ from dfmdock_tpu.ops import fused_egcl as jf
 from dfmdock_tpu_torch.models.egnn import EGCL, egnn_apply_fused
 from dfmdock_tpu_torch.ops import edge_table as et
 from dfmdock_tpu_torch.ops.fused_egcl import (
+    BUILD_ORDER,
     SLICE_K,
+    SLICE_K_BF16,
+    TABLE_ROWS,
     fused_edge_layer,
     fused_edge_layer_plain,
+    prepare_layer,
     prepare_weight,
+    prepare_weight_bf16,
     split_bf16,
 )
+from dfmdock_tpu_torch.models.egnn import fused_weights
 from dfmdock_tpu_torch.params import to_state_dict
 
 C, E_DIM = 32, 16
@@ -209,11 +215,10 @@ def test_masked_edges_drop_by_selection():
 
 @pytest.mark.parametrize("c", [64, 256])
 def test_prepare_weight_layout_and_split(c):
-    """The weight as the CUDA kernel streams it: element (out n, in k) of
-    W^T at the offset the kernel's wgmma descriptors read (slice k // SLICE_K,
-    8 x 8 core matrices, hi then lo piece; the single-pass mode's layout
-    the hi pieces alone), hi the round-to-nearest bf16 of W and hi + lo
-    within 2^-16 of W.  A three-pass product on the pieces
+    """The weight as the three-pass CUDA kernel streams it: element (out n,
+    in k) of W^T at the offset the kernel's wgmma descriptors read (slice
+    k // SLICE_K, 8 x 8 core matrices, hi then lo piece), hi the
+    round-to-nearest bf16 of W and hi + lo within 2^-16 of W.  A three-pass product on the pieces
     (hi.hi + lo.hi + hi.lo, exact products summed in float64) lies within
     1e-4 of the f32 product, relative to its largest value."""
     g = torch.Generator().manual_seed(c)
@@ -226,11 +231,178 @@ def test_prepare_weight_layout_and_split(c):
     hi, lo = prepared[k // SLICE_K, 0, off], prepared[k // SLICE_K, 1, off]
     torch.testing.assert_close(hi, w.t().to(torch.bfloat16).float(), rtol=0, atol=0)
     assert ((hi + lo) - w.t()).abs().max() <= 2.0 ** -16 * w.abs().max()
-    # the single-pass mode streams the hi piece alone, in the same order
-    assert torch.equal(prepare_weight(w, single=True), prepare_weight(w)[:, :1])
     x = torch.nn.functional.silu(torch.randn((64, c), generator=g) * 2.0)
     (xh, xl), (wh, wl) = split_bf16(x), split_bf16(w)
     d = lambda t: t.double()
     three = d(xh) @ d(wh) + d(xl) @ d(wh) + d(xh) @ d(wl)
     ref = x @ w
     assert (three - d(ref)).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def decode_bf16_weight(prepared, c):
+    """The inverse of prepare_weight_bf16's core-matrix layout: [C, C] of
+    W^T's bf16 values, row n, column p = slice * SLICE_K_BF16 + fragment
+    position (the offset the bf16 kernel's wgmma descriptors read)."""
+    n = torch.arange(c)[:, None]
+    pos = torch.arange(c)[None, :]
+    ks = SLICE_K_BF16
+    off = ((n // 8) * (ks // 8) + (pos % ks) // 8) * 64 + (n % 8) * 8 + pos % 8
+    return prepared.float()[pos // ks, off]
+
+
+def test_build_order_is_the_fragment_layout():
+    """BUILD_ORDER against wgmma's register A fragment (PTX, m64nNk16 bf16:
+    thread q of a quad holds columns 2q, 2q + 1 in registers 0 / 1 and
+    2q + 8, 2q + 9 in registers 2 / 3 of each k-step): the bf16 kernel's
+    thread q packs its loaded columns 8q + u as (u = 4 kk, 4 kk + 1) into
+    register 0 / 1 and (u = 4 kk + 2, 4 kk + 3) into register 2 / 3 of
+    k-step kk, so fragment position 16 kk + 2q + j holds column 8q + 4 kk + j
+    and position 16 kk + 8 + 2q + j column 8q + 4 kk + 2 + j."""
+    assert sorted(BUILD_ORDER) == list(range(SLICE_K_BF16))
+    for q in range(4):
+        for kk in range(2):
+            for j in range(2):
+                assert BUILD_ORDER[16 * kk + 2 * q + j] == 8 * q + 4 * kk + j
+                assert BUILD_ORDER[16 * kk + 8 + 2 * q + j] == 8 * q + 4 * kk + 2 + j
+
+
+@pytest.mark.parametrize("c", [64, 256])
+def test_prepare_weight_bf16_layout(c):
+    """The weights as the bf16 kernel streams them (slices of SLICE_K_BF16
+    input rows, one bf16 piece): W_c0 in its own row order, W_l1 with each
+    slice's rows in BUILD_ORDER, so that the product over fragment
+    positions of A's columns taken in BUILD_ORDER is A @ W exactly (bf16
+    values, float64 sums)."""
+    g = torch.Generator().manual_seed(c)
+    w = torch.randn((c, c), generator=g) / np.sqrt(c)
+    wt16 = w.t().to(torch.bfloat16).float()
+    natural = prepare_weight_bf16(w, False)
+    assert natural.shape == (c // SLICE_K_BF16, SLICE_K_BF16 * c)
+    assert natural.dtype == torch.bfloat16
+    torch.testing.assert_close(decode_bf16_weight(natural, c), wt16, rtol=0, atol=0)
+    ordered = prepare_weight_bf16(w, True)
+    cols = (torch.arange(0, c, SLICE_K_BF16)[:, None] + torch.tensor(BUILD_ORDER)).reshape(-1)
+    torch.testing.assert_close(decode_bf16_weight(ordered, c), wt16[:, cols], rtol=0, atol=0)
+    x = torch.nn.functional.silu(torch.randn((64, c), generator=g)).to(torch.bfloat16).double()
+    ref = x @ wt16.double().t()
+    out = x[:, cols] @ decode_bf16_weight(ordered, c).double().t()
+    assert (out - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+def emulate_bf16_kernel(idx, edge_mask, ebin, egeo, a, B16, w_r, b_l1, w_att, b_att,
+                        prepared, coord_params):
+    """The bf16 kernel's data path on the CPU from what its wrapper hands
+    it: B as bf16, the [TABLE_ROWS, C] bf16 tables at the kernel's row
+    offsets (T_sp's families at 0 / 40 / 64 / 88 plus their bin, T_p at
+    100 plus the relpos class), the products through the prepared weights
+    (W_l1's A columns in BUILD_ORDER), masked rows dropped by selection."""
+    c = a.shape[-1]
+    tab = prepared.tables.float()
+    bins = ebin.long()
+    pre = a.to(torch.bfloat16).float()[..., :, None, :] + B16.float()[0][idx.long()[0]][None]
+    for col, base in ((et.E_DB, 0), (et.E_OB, 40), (et.E_TB, 64), (et.E_PB, 88),
+                      (et.E_RP, 100)):
+        pre = pre + tab[base + bins[..., col]]
+    pre = pre + egeo[..., et.G_RAD, None] * w_r
+    valid = (edge_mask > 0.5)[..., None]
+    zero = torch.zeros(())
+    act = torch.where(valid, torch.nn.functional.silu(pre), zero).to(torch.bfloat16).float()
+    cols = (torch.arange(0, c, SLICE_K_BF16)[:, None] + torch.tensor(BUILD_ORDER)).reshape(-1)
+    m2 = torch.nn.functional.silu(act[..., cols] @ decode_bf16_weight(prepared.w1, c).t() + b_l1)
+    gate = torch.sigmoid((m2 * w_att).sum(-1, keepdim=True) + b_att)
+    m2g = m2 * gate
+    agg = torch.where(valid, m2g, zero).sum(-2)
+    if coord_params is None:
+        return agg
+    _, b_c0, w_c1 = coord_params
+    cw = torch.nn.functional.silu(
+        m2g.to(torch.bfloat16).float() @ decode_bf16_weight(prepared.wc, c).t() + b_c0)
+    wgt = (cw * w_c1).sum(-1, keepdim=True).clamp(-2.0, 2.0)
+    return agg, torch.where(valid, wgt * egeo[..., et.G_CD:et.G_CD + 3], zero).sum(-2)
+
+
+@pytest.mark.parametrize("coord", [False, True])
+def test_bf16_kernel_inputs_match_plain(coord):
+    """The bf16 mode's input preparation: the kernel's data path, emulated
+    on the CPU from `prepare_layer`'s tables and weights and a bf16 B,
+    against fused_edge_layer_plain(dtype=bf16) on the float32 arguments:
+    agg within 1e-5 of its largest (float32 sums in another order), the
+    coord update within BF16_LAYER_REL (those sums, in another order, may
+    tip m2g's rounding to bf16 by one step; a wrong layout lands O(1)
+    away); the tables are T_sp's then T_p's rows rounded to bf16; the wrapper
+    gives the same bits for a bf16 B as for the float32 B it rounds; the
+    float32 mode's tables are T_sp's then T_p's rows as they are."""
+    b, pos, idx, mask, tab = graph(20, 12, 64, 3)
+    n, k = idx.shape
+    g = torch.Generator().manual_seed(2)
+    c = 64
+    r = lambda *s, scale=0.2: torch.randn(s, generator=g) * scale
+    idx_t, mask_t, ebin, egeo = port_table(tab, n, k)
+    a, B = r(1, n, c), r(1, n, c)
+    t_sp, t_p, w_r = r(100, c, scale=0.3), r(66, c, scale=0.3), r(c, scale=0.01)
+    w_l1, b_l1, w_att, b_att = r(c, c, scale=c ** -0.5), r(c), r(c, scale=c ** -0.5), r(1)
+    coord_params = (r(c, c, scale=c ** -0.5), r(c), r(c, scale=c ** -0.5)) if coord else None
+    prepared = prepare_layer(t_sp, t_p, w_l1, coord_params[0] if coord else None,
+                             torch.bfloat16)
+    assert prepared.tables.shape == (TABLE_ROWS, c) and prepared.tables.dtype == torch.bfloat16
+    assert torch.equal(prepared.tables[:100], t_sp.to(torch.bfloat16))
+    assert torch.equal(prepared.tables[100:], t_p.to(torch.bfloat16))
+    assert (prepared.wc is None) == (not coord)
+    args = (idx_t, mask_t, ebin, egeo, a, B, t_sp, t_p, w_r, w_l1, b_l1, w_att, b_att,
+            coord_params)
+    ref = fused_edge_layer_plain(*args, dtype=torch.bfloat16)
+    B16 = B.to(torch.bfloat16)
+    out = emulate_bf16_kernel(idx_t, mask_t, ebin, egeo, a, B16, w_r, b_l1, w_att, b_att,
+                              prepared, coord_params)
+    via16 = fused_edge_layer(*args[:5], B16, *args[6:], dtype=torch.bfloat16,
+                             prepared=prepared)
+    for o, rf, v, tol in zip(*((x if coord else (x,)) for x in (out, ref, via16)),
+                             (1e-5, BF16_LAYER_REL)):
+        assert (o - rf).abs().max() <= tol * rf.abs().max()
+        assert torch.equal(v, rf)
+    f32 = prepare_layer(t_sp, t_p, w_l1, coord_params[0] if coord else None)
+    assert f32.tables.dtype == torch.float32 and torch.equal(f32.tables, torch.cat([t_sp, t_p]))
+    assert torch.equal(f32.w1, prepare_weight(w_l1))
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_fused_weights_built_once_and_rebuilt_on_update(dtype):
+    """egnn_apply_fused's step-invariant weights: under no_grad built once
+    per set of weights (the same object on the next forward, its output
+    bit-equal to a forward that builds them inline, with gradients on), and
+    rebuilt when a parameter changes in place; the kernel-side form is
+    prepare_layer's."""
+    b, pos, idx, mask, tab = graph(20, 12, 64, 3)
+    n, k = idx.shape
+    layers = [EGCL(C, E_DIM, False), EGCL(C, E_DIM, True)]
+    g = torch.Generator().manual_seed(4)
+    sp_w, rp_w = torch.randn((100, E_DIM), generator=g), torch.randn((66, E_DIM), generator=g)
+    h = torch.randn((1, n, C), generator=g)
+    ca = torch.from_numpy(np.array(pos[:, 1, :]))[None]
+    table = port_table(tab, n, k)
+    node_mask = torch.from_numpy(np.array(b["node_mask"]))
+    lig = torch.from_numpy(np.array(b["lig_mask"], np.float32))
+    run = lambda: egnn_apply_fused(layers, sp_w, rp_w, h, ca, *table, node_mask, lig, dtype)
+    with torch.no_grad():
+        out = run()
+        built = [layer._fused_weights[1] for layer in layers]
+        again = run()
+        assert all(layer._fused_weights[1] is w for layer, w in zip(layers, built))
+    with torch.enable_grad():
+        inline = run()
+    for x, y, z in zip(out, again, inline):
+        assert torch.equal(x, y) and torch.equal(x, z.detach())
+    with torch.no_grad():
+        layers[1].edge_mlp["l1"].weight.mul_(1.5)
+        changed = run()
+        assert layers[1]._fused_weights[1] is not built[1]
+        assert layers[0]._fused_weights[1] is built[0]
+    with torch.enable_grad():
+        fresh = run()
+    assert not torch.equal(changed[0], out[0])
+    for x, y in zip(changed, fresh):
+        assert torch.equal(x, y.detach())
+    w = fused_weights(layers[1], sp_w, rp_w, dtype, kernel=True)
+    ref = prepare_layer(w["t_sp"], w["t_p"], w["w_l1"], w["w_c0"], dtype)
+    for x, y in zip(w["kernel"], ref):
+        assert (x is None and y is None) or torch.equal(x, y)

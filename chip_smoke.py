@@ -96,8 +96,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      steps of the 48-row pool); steps/s, peak memory, the logged losses
      beside the JAX record's first line (v5e), one step on the card against
      the CPU (loss terms rel 1e-4, gradients rel 1e-3), the saved
-     weights.npz through load_model, a 20-step profiled window (idle
-     share); only select_topk may launch;
+     weights.npz through load_model, a 20-step profiled window on the
+     captured and the eager route (idle share); the CLI trains through
+     the captured step (one graph a step, its replays' launches counted),
+     and two epochs of two steps with a pool refresh between, replayed
+     against eager under deterministic algorithms, keep every weight
+     bit-equal after every step; only select_topk may launch;
   9h. training, the DFMDock lineage: the same at its checkpoint's protocol
      (20 training complexes, --grad-energy), 2 epochs (80 steps);
   9m. bfloat16 compute on the eager route, both lineages: the training CLI
@@ -170,6 +174,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -201,7 +206,7 @@ from dfmdock_tpu_torch.geom import kabsch, random_rotation_matrix
 from dfmdock_tpu_torch.features.positional import NUM_RELPOS_CLASSES
 from dfmdock_tpu_torch.models.edges import sample_gumbel, select_edges, select_y
 from dfmdock_tpu_torch.models.esm2 import ESM2, ESM2_650M, embed_sequence, tokenize
-from dfmdock_tpu_torch.ops import _build
+from dfmdock_tpu_torch.ops import _build, launch_counts
 from dfmdock_tpu_torch.ops.edge_table import (
     BIN_FAMILIES,
     E_DB,
@@ -229,7 +234,7 @@ from dfmdock_tpu_torch.parallel.dryrun import entry
 from dfmdock_tpu_torch.parallel.mesh import make_dp_train_step
 from dfmdock_tpu_torch.sampler import PicardSampler
 from dfmdock_tpu_torch.sampler.em import modify_coords, randomize_pose, step_schedule
-from dfmdock_tpu_torch.train.pool import make_training_batch, train_step, upload
+from dfmdock_tpu_torch.train.pool import PoolStep, make_training_batch, train_step, upload
 from dfmdock_tpu_torch.train.trainer import make_optimizer
 
 NPZ = os.path.join("data", "db5_npz", "1AVX.npz")
@@ -540,28 +545,30 @@ def reset_counts():
     edge_bins.launches = 0
 
 
-def counts():
-    return {"edge_table": build_edge_table.launches,
-            "fused_egcl": fused_edge_layer.launches,
-            "fused_egcl_coord": fused_edge_layer.coord_launches,
-            "fused_egcl_bf16": fused_edge_layer.bf16_launches,
-            "fused_egcl_coord_bf16": fused_edge_layer.bf16_coord_launches,
-            "fused_energy": fused_energy.launches,
-            "select_topk": select_topk.launches,
-            "edge_bins": edge_bins.launches}
-
-
-def run_path(name, kernels, fn, absent=()):
+def run_path(name, kernels, fn, absent=(), graphs=False):
     """Run one main path with the launch counts set to 0 just before it and
     read just after; fail if one of `kernels` did not launch, or one of
-    `absent` did.  Returns (fn's result, wall seconds, counts)."""
+    `absent` did.  With `graphs` (a training CLI run, whose result's "graph"
+    says what its captured steps launched) the counts are the launches
+    made: the wrappers count where a graph is captured, which launches
+    nothing, so the captures' counts are taken off and the replays' added.
+    Returns (fn's result, wall seconds, counts)."""
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts()
+    launches = launch_counts()
+    if graphs:
+        g = result["graph"]
+        counted = dict(launches)
+        for k in launches:
+            launches[k] += g["replayed_launches"].get(k, 0) - g["captured_launches"].get(k, 0)
+        log(f"# {name}: {g['captures']} captured graph(s), {g['replays']} replays; the "
+            f"wrappers counted {json.dumps(counted)} (the captures' "
+            f"{json.dumps(g['captured_launches'])} launched nothing; the replays launched "
+            f"{json.dumps(g['replayed_launches'])})")
     for k in kernels:
         if launches[k] == 0:
             raise AssertionError(f"the {name} run launched no {k} kernel")
@@ -572,6 +579,9 @@ def run_path(name, kernels, fn, absent=()):
     return result, wall, launches
 
 
+CARD = ["card not read"]  # the card's name and power limit, as nvidia-smi gives them
+
+
 def device_phase():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -579,6 +589,7 @@ def device_phase():
     ).stdout.strip().splitlines()[0]
     log(f"# card: {smi}")
     log(smi)
+    CARD[0] = smi
     return smi
 
 
@@ -1034,7 +1045,7 @@ def parity_phase(raw, device):
         for t in ts:
             parity_check(label, SCORE_NET_OUTPUTS, net_k, net_p, batch, pos, t, kw_k, kw_p)
         torch.cuda.synchronize()
-        log(f"# parity {label}: kernel launches {json.dumps(counts())}")
+        log(f"# parity {label}: kernel launches {json.dumps(launch_counts())}")
 
 
 def dock_phase(out_root):
@@ -1486,8 +1497,8 @@ def bf16_parity_phase(raw, device):
             with torch.no_grad(), recording_kernels() as calls:
                 o_k = net_k(batch, pos, t, edges=edges)
                 torch.cuda.synchronize()
-            if counts()["fused_egcl_bf16"] == 0 or counts()["fused_egcl"] != 0:
-                raise AssertionError(f"{label}: launches {counts()}")
+            if launch_counts()["fused_egcl_bf16"] == 0 or launch_counts()["fused_egcl"] != 0:
+                raise AssertionError(f"{label}: launches {launch_counts()}")
             with torch.no_grad():
                 o_p = net_p(host, pos.cpu(), t, edges=host_edges)
             errs = parity_errors(SCORE_NET_OUTPUTS, o_k, o_p, f32=False)
@@ -1981,56 +1992,209 @@ def train_step_parity(label, lineage, flags, weights, device,
         f"({top:.3e}); worst {max(err for err, _ in errs.values()) / top:.3e} of it")
 
 
-def train_profile(net, lineage, flags, device, steps=TRAIN_PROFILE_STEPS, distinct=4):
+def train_rows(flags, device, count, seed=0):
+    """`count` pool rows of the training data at `flags`' crop (seed `seed`),
+    stacked into a device pool."""
+    args = train.parse_args(flags + ["--device", device.type])
+    ds = NPZDataset(args.data_dir)
+    rng = np.random.RandomState(seed)
+    made = [make_training_batch(ds.load_raw(i % len(ds)), args.crop_size,
+                                round_up(args.crop_size), rng) for i in range(count)]
+    return upload({k: np.stack([b[k] for b in made]) for k in made[0]}, device)
+
+
+def pool_stepper(net, lineage, flags, device, seed, capture, loss=None):
+    """A PoolStep of the trained `net` with a fresh optimizer, at the
+    training CLI's `flags`, drawing from a generator seeded `seed`."""
+    cfg = train.experiment_config(train.parse_args(flags + ["--device", device.type]))
+    r3, so3 = R3Diffuser(cfg.diffuser.r3), SO3Diffuser(cfg.diffuser.so3)
+    return PoolStep(net, r3, so3, cfg.experiment, make_optimizer(net, cfg.experiment),
+                    loss or train.LOSSES[lineage], torch.Generator(device).manual_seed(seed),
+                    capture=capture)
+
+
+def host_launches(events, steps):
+    """Kernel and graph launches the host made a step, from the profiler's
+    runtime records (None where the trace holds none)."""
+    calls = [e for e in events if "Launch" in e.key and e.key.startswith(("cuda", "cu"))]
+    return sum(e.count for e in calls) / steps if calls else None
+
+
+def train_profile(net, lineage, flags, device, steps=TRAIN_PROFILE_STEPS, distinct=4,
+                  top=8):
     """The device's busy and idle share over `steps` training steps of the
-    trained net (fresh optimizer) on `distinct` pool rows of seed 0 in
-    turn, after one warm-up step, and the peak memory of the window.
-    Returns {steps_s, idle, peak_gb, launches} (idle None where the
-    profiler recorded no device time)."""
+    trained net (fresh optimizer) on a pool of `distinct` rows of seed 0, on
+    each route: PoolStep captured (one graph replayed a step) and eager.
+    The first epoch (warm-up and capture on the captured route) runs before
+    the window.  Returns {route: {steps_s, idle, peak_gb, launches (device
+    kernels a step), host_calls (launch calls a step), top}} (idle None
+    where the profiler recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = train.parse_args(flags + ["--device", device.type])
-    cfg = train.experiment_config(args)
-    ds = NPZDataset(args.data_dir)
-    rng = np.random.RandomState(0)
-    made = [upload(make_training_batch(ds.load_raw(i % len(ds)), args.crop_size,
-                                       round_up(args.crop_size), rng), device)
-            for i in range(distinct)]
-    rows = [made[i % distinct] for i in range(steps + 1)]
-    r3, so3 = R3Diffuser(cfg.diffuser.r3), SO3Diffuser(cfg.diffuser.so3)
-    opt = make_optimizer(net, cfg.experiment)
-    gen = torch.Generator(device).manual_seed(3)
-    step = lambda b: train_step(net, r3, so3, cfg.experiment, opt, train.LOSSES[lineage],
-                                [b], gen, rotate=True)
-    step(rows[0])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # no host-op tracing cost
-        t0 = time.perf_counter()
-        for b in rows[1:]:
-            step(b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    pool = train_rows(flags, device, distinct)
+    state = {k: v.clone() for k, v in net.state_dict().items()}
     dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
         e, "self_cuda_time_total", 0)
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    window = {"steps_s": steps / wall_ms * 1e3, "idle": None,
-              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "launches": sum(e.count for e in kernels) / steps}
-    if busy_ms == 0:
-        log(f"# train {lineage} profile: the profiler recorded no device time (not measured)")
-        return window
-    window["idle"] = 1 - busy_ms / wall_ms
-    log(f"# train {lineage} profile, {steps} steps: wall {wall_ms:.1f} ms "
-        f"({steps / wall_ms * 1e3:.2f} steps/s), device busy {busy_ms:.1f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
-        f"{sum(e.count for e in kernels)} kernel launches ({sum(e.count for e in kernels) / steps:.0f} "
-        "a step)")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-        log(f"#   {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / 1e3 / busy_ms:5.1f}% "
-            f"x{e.count:<6d} {e.key[:90]}")
-    return window
+    windows = {}
+    for route, capture in (("captured", True), ("eager", False)):
+        net.load_state_dict(state)
+        stepper = pool_stepper(net, lineage, flags, device, 3, capture)
+        stepper.load(pool)
+        stepper.epoch()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # no host-op tracing cost
+            t0 = time.perf_counter()
+            done = 0
+            while done < steps:
+                for _ in range(min(stepper.start(), steps - done)):
+                    stepper.step()
+                    done += 1
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+        w = {"steps_s": steps / wall_ms * 1e3, "idle": None,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": sum(e.count for e in kernels) / steps,
+             "host_calls": host_launches(events, steps), "captures": stepper.captures,
+             "device_ms": busy_ms / steps,
+             "top": [(e.key, dev_us(e) / 1e3 / steps, e.count / steps)
+                     for e in sorted(kernels, key=dev_us, reverse=True)[:top]]}
+        windows[route] = w
+        calls = "not measured" if w["host_calls"] is None else f"{w['host_calls']:.0f}"
+        if busy_ms == 0:
+            log(f"# train {lineage} {route} profile: the profiler recorded no device time "
+                f"(not measured); {w['steps_s']:.3f} steps/s; card {CARD[0]}")
+            continue
+        w["idle"] = 1 - busy_ms / wall_ms
+        log(f"# train {lineage} {route} profile, {steps} steps: wall {wall_ms:.1f} ms "
+            f"({w['steps_s']:.3f} steps/s), device busy {busy_ms:.1f} ms "
+            f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * w['idle']:.1f}%, "
+            f"{w['launches']:.0f} device kernels and {calls} host launch calls a step, "
+            f"{stepper.captures} capture(s), {w['device_ms']:.3f} ms of device time a step, "
+            f"peak {w['peak_gb']:.3f} GB; card {CARD[0]}")
+        for key, ms, count in w["top"]:
+            log(f"#   {ms:9.3f} ms/step {100 * ms / w['device_ms']:5.1f}% x{count:<7.1f} "
+                f"{key[:90]} ({route}; card {CARD[0]})")
+    if "indexing_backward" in " ".join(k for w in windows.values() for k, _, _ in w["top"]):
+        raise AssertionError(f"train {lineage}: indexing_backward_kernel is among the top "
+                             "device operations of a training step")
+    return windows
+
+
+def grad_gaps(net_a, net_b):
+    """{parameter: (max abs gap, largest |b|)} of two nets' gradients."""
+    grad = lambda p: torch.zeros_like(p) if p.grad is None else p.grad
+    params_b = dict(net_b.named_parameters())
+    return {name: (float((grad(p) - grad(params_b[name])).abs().max()),
+                   float(grad(params_b[name]).abs().max()))
+            for name, p in net_a.named_parameters()}
+
+
+@contextlib.contextmanager
+def deterministic(record):
+    """torch.use_deterministic_algorithms within the block (warn_only): the
+    ops with no deterministic CUDA path warn, and their warnings' first
+    lines are added to the set `record`."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        record.update(str(w.message).splitlines()[0][:120] for w in caught
+                      if "determinis" in str(w.message))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def captured_vs_eager(label, lineage, flags, weights, device, epoch_steps=2,
+                      tols=(TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR)):
+    """Two epochs of `epoch_steps` training steps each, replayed from the
+    captured graph (warm-up, capture, replays), against as many eager
+    steps, both PoolStep from the trained `weights` and one generator seed,
+    with a pool refresh between the epochs (`load` of a second pool of the
+    same shapes, copied into the captured buffers; the second epoch draws a
+    new permutation), both under torch.use_deterministic_algorithms (the
+    gathers' backward otherwise adds in any order, and Adam's first step,
+    ~lr * sign(g), turns that noise into weights 2 lr apart).  Gates: the
+    weights after every step bit-equal (the arrays that differ and the ops
+    that warned of no deterministic path named); the last step's gradients
+    bit-equal, else each array within tols' (rel of its largest, floor of
+    the largest of all: 9g's step bounds); the generator's state after
+    equal; two replays of one row (the second pool holds one row twice)
+    rotating it differently (each replay's rotated coordinates copied into
+    a buffer)."""
+    with deterministic(ops := set()):
+        _captured_vs_eager(label, lineage, flags, weights, device, epoch_steps, tols, ops)
+
+
+def _captured_vs_eager(label, lineage, flags, weights, device, epoch_steps, tols, ops):
+    grad_rel, grad_floor = tols
+    pools = [train_rows(flags, device, epoch_steps, seed=5),
+             {k: v[:1].expand(epoch_steps, *v.shape[1:]).contiguous()
+              for k, v in train_rows(flags, device, 1, seed=6).items()}]
+    cfg = train.experiment_config(train.parse_args(flags + ["--device", device.type]))
+    seen = torch.zeros_like(pools[0]["pos"][0])
+
+    def recording(net, r3, so3, batch, generator, exp, injected=None):
+        seen.copy_(batch["pos"])
+        return train.LOSSES[lineage](net, r3, so3, batch, generator, exp, injected)
+
+    nets, steppers = [], []
+    for capture in (True, False):
+        net = load_model(None, cfg, device, lineage=lineage)
+        net.load_state_dict(weights)
+        nets.append(net)
+        steppers.append(pool_stepper(net, lineage, flags, device, 13, capture,
+                                     recording if capture else None))
+    rotated, differ = [], {}
+    for epoch, pool in enumerate(pools):
+        for s in steppers:
+            s.load(pool)
+            s.start()
+        for i in range(epoch_steps):
+            for s in steppers:
+                s.step()
+                torch.cuda.synchronize()
+                if s.capture:
+                    rotated.append(seen.clone())
+            for (name, p), q in zip(nets[0].named_parameters(), nets[1].parameters()):
+                if not torch.equal(p, q):
+                    differ[f"epoch {epoch} step {i} weight {name}"] = float((p - q).abs().max())
+    steps = len(pools) * epoch_steps
+    graph = steppers[0]
+    if (graph.captures, graph.replays) != (1, steps - 1):
+        raise AssertionError(f"train {label} captured vs eager: {graph.captures} captures and "
+                             f"{graph.replays} replays in {steps} steps")
+    if torch.equal(rotated[-1], rotated[-2]):
+        raise AssertionError(f"train {label}: two replays rotated one row alike")
+    gen_equal = torch.equal(graph.generator.get_state(), steppers[1].generator.get_state())
+    if not gen_equal:
+        raise AssertionError(f"train {label}: the generator's state after {steps - 1} replays "
+                             "differs from its state after the eager steps")
+    gaps = grad_gaps(nets[0], nets[1])
+    top = max(scale for _, scale in gaps.values())
+    bad = [f"{name} {gap:.3e} of {scale:.3e}" for name, (gap, scale) in gaps.items()
+           if gap > grad_rel * scale + grad_floor * top]
+    diff_grads = sorted(name for name, (gap, _) in gaps.items() if gap > 0)
+    log(f"# train {label} captured vs eager, 2 epochs of {epoch_steps} steps with a pool "
+        f"refresh between (1 warm-up, 1 capture, {graph.replays} replays): weights after "
+        f"each step {'bit-equal' if not differ else f'differ in {len(differ)} arrays'}; last "
+        f"step's gradients "
+        f"{'bit-equal' if not diff_grads else 'differ in ' + ', '.join(diff_grads)}; "
+        f"generator state equal; the replays' rotations of one row differ")
+    for k, v in list(differ.items())[:5]:
+        log(f"#   {k}: max abs {v:.3e}")
+    if ops:
+        log(f"# train {label}: ops without a deterministic path: {'; '.join(sorted(ops))}")
+    if bad:
+        raise AssertionError(f"train {label} captured vs eager: gradients beyond the step "
+                             f"bounds: {'; '.join(bad)}")
+    if differ:
+        raise AssertionError(f"train {label} captured vs eager: the weights differ after "
+                             f"{len(differ)} (step, array) pairs, first {next(iter(differ))}")
 
 
 def train_phase(out_root, lineage, flags, record, device):
@@ -2039,19 +2203,23 @@ def train_phase(out_root, lineage, flags, record, device):
     memory, the losses of each logged step beside the JAX package's first
     record line (v5e), one step on the card against the CPU, a profiled
     window, and the saved weights.npz loaded through load_model (bit-equal
-    weights and forward).  Only select_topk may launch: training runs the
-    eager path."""
+    weights and forward).  The CLI trains through the captured step
+    (train/pool.PoolStep: one graph a step); only select_topk may launch
+    (the model's training path is eager), its launches the replays'
+    included."""
     ck = os.path.join(out_root, f"train_{lineage}")
     argv = flags + ["--ckpt-dir", ck, "--device", device.type]
     torch.cuda.reset_peak_memory_stats()
     out, wall, launches = run_path(f"train {lineage}", ("select_topk",),
-                                   lambda: train.main(argv), absent=TRAIN_ABSENT)
+                                   lambda: train.main(argv), absent=TRAIN_ABSENT, graphs=True)
     peak = torch.cuda.max_memory_allocated() / 1e9
     steps = out["steps"]
     log(f"# train {lineage} ({' '.join(flags)}): {steps} steps, CLI wall {wall:.3f} s "
         f"({steps / wall:.3f} steps/s), training loop {out['wall']:.3f} s "
-        f"({steps / out['wall']:.3f} steps/s, synchronized), peak memory {peak:.3f} GB, "
-        f"{launches['select_topk'] / steps:.1f} select_topk launches a step")
+        f"({steps / out['wall']:.3f} steps/s, synchronized; captured route, "
+        f"{out['graph']['captures']} capture(s) in the run), peak memory {peak:.3f} GB, "
+        f"{launches['select_topk'] / steps:.1f} select_topk launches a step; card {CARD[0]}")
+    check_graphs(f"train {lineage}", out)
     with open(record) as f:
         first = json.loads(f.readline())
     log(f"# train {lineage}: the JAX package's record on TPU v5e ({record}), its first line: "
@@ -2081,8 +2249,18 @@ def train_phase(out_root, lineage, flags, record, device):
             raise AssertionError(f"train {lineage}: the saved weights' {k} differs")
     log(f"# train {lineage}: {ck}/weights.npz loads through load_model, bit-equal to the "
         "trained model's weights and forward (kernel path)")
+    captured_vs_eager(lineage, lineage, flags, weights, device)
     window = train_profile(out["net"], lineage, flags, device)
     return steps / out["wall"], launches, weights, window
+
+
+def check_graphs(label, out):
+    """A training CLI run of S steps took the captured route: one warm-up
+    step, one capture, S - 1 replays."""
+    g, steps = out["graph"], out["steps"]
+    if (g["captures"], g["replays"]) != (1, steps - 1):
+        raise AssertionError(f"{label}: {g['captures']} captures and {g['replays']} replays "
+                             f"in {steps} steps, expected 1 and {steps - 1}")
 
 
 def with_flag(flags, name, value):
@@ -2106,7 +2284,8 @@ def bf16_train_phase(out_root, lineage, flags, weights, f32_rate, f32_window, de
     out, wall, launches = run_path(f"train {lineage} bf16", ("select_topk",),
                                    lambda: train.main(bf_flags + ["--ckpt-dir", ck, "--device",
                                                                   device.type]),
-                                   absent=TRAIN_ABSENT)
+                                   absent=TRAIN_ABSENT, graphs=True)
+    check_graphs(f"train {lineage} bf16", out)
     peak = torch.cuda.max_memory_allocated() / 1e9
     steps = out["steps"]
     with open(os.path.join(ck, "config.yaml")) as f:
@@ -2126,18 +2305,22 @@ def bf16_train_phase(out_root, lineage, flags, weights, f32_rate, f32_window, de
                                             if k.endswith("loss")))
     train_step_parity(f"{lineage} bf16", lineage, flags + BF16, weights, device,
                       tols=(BF16_TRAIN_LOSS_REL, BF16_TRAIN_GRAD_REL, BF16_TRAIN_GRAD_FLOOR))
+    captured_vs_eager(f"{lineage} bf16", lineage, bf_flags, weights, device,
+                      tols=(BF16_TRAIN_GRAD_REL, BF16_TRAIN_GRAD_FLOOR))
     cfg = train.experiment_config(train.parse_args(bf_flags + ["--device", device.type]))
     net = load_model(None, cfg, device, lineage=lineage)
     net.load_state_dict(weights)
-    window = train_profile(net, lineage, bf_flags, device)
+    windows = train_profile(net, lineage, bf_flags, device)
     idle = lambda w: "not measured" if w["idle"] is None else f"{100 * w['idle']:.1f}%"
-    log(f"# train {lineage} {TRAIN_PROFILE_STEPS}-step window: bf16 {window['steps_s']:.3f} "
-        f"steps/s, peak {window['peak_gb']:.3f} GB, idle {idle(window)}, "
-        f"{window['launches']:.0f} launches a step; f32 {f32_window['steps_s']:.3f} steps/s, "
-        f"peak {f32_window['peak_gb']:.3f} GB, idle {idle(f32_window)}, "
-        f"{f32_window['launches']:.0f} launches a step; bf16 / f32 steps/s "
-        f"{window['steps_s'] / f32_window['steps_s']:.3f}")
-    return window
+    for route, window in windows.items():
+        f32 = f32_window[route]
+        log(f"# train {lineage} {TRAIN_PROFILE_STEPS}-step window, {route}: bf16 "
+            f"{window['steps_s']:.3f} steps/s, peak {window['peak_gb']:.3f} GB, idle "
+            f"{idle(window)}, {window['launches']:.0f} launches a step; f32 "
+            f"{f32['steps_s']:.3f} steps/s, peak {f32['peak_gb']:.3f} GB, idle {idle(f32)}, "
+            f"{f32['launches']:.0f} launches a step; bf16 / f32 steps/s "
+            f"{window['steps_s'] / f32['steps_s']:.3f}")
+    return windows
 
 
 def bf16_predict_phase(raw, device):
@@ -2159,8 +2342,8 @@ def bf16_predict_phase(raw, device):
             o_p = net_p({k: v.cpu() for k, v in batch.items()}, pos.cpu(), 0.5,
                         edges=tuple(e.cpu() for e in edges))
         torch.cuda.synchronize()
-        if any(counts().values()):
-            raise AssertionError(f"bf16 predict {lineage}: kernels launched {counts()}")
+        if any(launch_counts().values()):
+            raise AssertionError(f"bf16 predict {lineage}: kernels launched {launch_counts()}")
         for name in outputs:
             a_err, r_err, _ = max_errs(o_k[name].cpu(), o_p[name])
             log(f"# bf16 predict {lineage} (eager) card vs CPU {name}: max abs {a_err:.3e} "
@@ -2243,8 +2426,9 @@ def dp_sweep_phase(out_root):
 
 def dp_train_phase(out_root, device, extra=()):
     """Data-parallel training through NCCL at one rank: the training CLI
-    with --dp --batch-size 2 (one step of a two-row pool at crop 448)
-    against the same CLI run without --dp (the saved weights bit-equal),
+    with --dp --batch-size 2 (two steps of a two-row pool at crop 448, the
+    second replayed from its captured graphs) against the same CLI run
+    without --dp (the saved weights bit-equal),
     then make_dp_train_step against train_step on the same two rows and the
     same generator seed: every gradient and metric bit-equal; `extra` adds
     training flags to both (--compute-dtype bfloat16).  Both run
@@ -2266,20 +2450,26 @@ def _dp_train_checks(out_root, device, extra):
     out_root = os.path.join(out_root, "_".join(["dp"] + [a.strip("-") for a in extra]))
     argv = ["--data-dir", data, "--crop-size", str(DP_CROP), "--grad-energy",
             "--use-contrastive-loss",
-            "--batch-size", "2", "--pool-variants", "2", "--epochs", "1", "--log-every", "1",
+            "--batch-size", "2", "--pool-variants", "2", "--epochs", "2", "--log-every", "1",
             "--seed", "2"] + extra
     plain, wall_p, _ = run_path(f"plain train step {tag}(dp reference)", ("select_topk",),
                                 lambda: train.main(argv + ["--ckpt-dir", os.path.join(
-                                    out_root, "dp_ref_train")]), absent=TRAIN_ABSENT)
+                                    out_root, "dp_ref_train")]), absent=TRAIN_ABSENT,
+                                graphs=True)
     out, wall_d, launches = run_path(f"dp train step {tag}", ("select_topk",), lambda: train.main(
-        argv + ["--ckpt-dir", os.path.join(out_root, "dp_train"), "--dp"]), absent=TRAIN_ABSENT)
-    if out["steps"] != 1:
-        raise AssertionError(f"dp train: {out['steps']} steps, expected 1")
+        argv + ["--ckpt-dir", os.path.join(out_root, "dp_train"), "--dp"]), absent=TRAIN_ABSENT,
+        graphs=True)
+    if out["steps"] != 2:
+        raise AssertionError(f"dp train: {out['steps']} steps, expected 2")
+    check_graphs(f"dp train {tag}", out)
+    check_graphs(f"plain train {tag}(dp reference)", plain)
     for k, v in plain["net"].state_dict().items():
         if not torch.equal(out["net"].state_dict()[k], v):
             raise AssertionError(f"dp train: the weight {k} after the step differs from the "
                                  "plain step's")
-    log(f"# dp train {tag}(CLI, NCCL, 1 rank): 1 step of 2 rows at crop {DP_CROP}, wall "
+    log(f"# dp train {tag}(CLI, NCCL, 1 rank): 2 steps of 2 rows at crop {DP_CROP} (the "
+        f"second replayed: the forward and backward's graph, the all_reduce, the optimizer's "
+        f"graph), wall "
         f"{wall_d:.3f} s "
         f"against the plain CLI's {wall_p:.3f} s; every weight after the step bit-equal")
 
@@ -2485,6 +2675,23 @@ def bounds(inputs):
             "kept": inputs["energy"][2] != 0}
 
 
+def train_phases(out_root, device):
+    """9g, 9h and 9m: training of both lineages, at float32 then bfloat16.
+    Returns ({lineage: CLI steps/s}, {lineage: bf16 windows})."""
+    train_rates, bf16_windows = {}, {}
+    for lineage, flags, record in (("mlsb", MLSB_TRAIN_FLAGS, DEMO_METRICS),
+                                   ("dfmdock", DFMDOCK_TRAIN_FLAGS, DFMDOCK_METRICS)):
+        t0 = time.perf_counter()
+        train_rates[lineage], _, weights, window = train_phase(out_root, lineage, flags,
+                                                               record, device)
+        log(f"# training {lineage}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bf16_windows[lineage] = bf16_train_phase(out_root, lineage, flags, weights,
+                                                 train_rates[lineage], window, device)
+        log(f"# training {lineage} at bf16: {time.perf_counter() - t0:.1f} s")
+    return train_rates, bf16_windows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2553,17 +2760,7 @@ def main():
         t0 = time.perf_counter()
         esm_phase(device)
         log(f"# ESM2-650M: {time.perf_counter() - t0:.1f} s")
-        train_rates, bf16_windows = {}, {}
-        for lineage, flags, record in (("mlsb", MLSB_TRAIN_FLAGS, DEMO_METRICS),
-                                       ("dfmdock", DFMDOCK_TRAIN_FLAGS, DFMDOCK_METRICS)):
-            t0 = time.perf_counter()
-            train_rates[lineage], _, weights, window = train_phase(out_root, lineage, flags,
-                                                                   record, device)
-            log(f"# training {lineage}: {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
-            bf16_windows[lineage] = bf16_train_phase(out_root, lineage, flags, weights,
-                                                     train_rates[lineage], window, device)
-            log(f"# training {lineage} at bf16: {time.perf_counter() - t0:.1f} s")
+        train_rates, bf16_windows = train_phases(out_root, device)
         t0 = time.perf_counter()
         bf16_predict_phase(raw, device)
         log(f"# bf16 eager predict: {time.perf_counter() - t0:.1f} s")
@@ -2664,9 +2861,12 @@ def main():
     log(f"# total {time.perf_counter() - t_start:.1f} s; card {smi}; denoising steps/s: dock "
         f"CLI {steps_s16:.2f} (default, bf16) / {steps_s:.2f} (f32), sampler "
         f"{sampler_rates['bf16']:.2f} / {sampler_rates['f32']:.2f}; "
-        f"training steps/s at crop 448: mlsb {train_rates['mlsb']:.3f}, DFMDock "
-        f"{train_rates['dfmdock']:.3f}; bf16 in the 20-step window: mlsb "
-        f"{bf16_windows['mlsb']['steps_s']:.3f}, DFMDock {bf16_windows['dfmdock']['steps_s']:.3f}")
+        f"training steps/s at crop 448 (CLI, captured): mlsb {train_rates['mlsb']:.3f}, DFMDock "
+        f"{train_rates['dfmdock']:.3f}; bf16 in the 20-step window (captured / eager): mlsb "
+        f"{bf16_windows['mlsb']['captured']['steps_s']:.3f} / "
+        f"{bf16_windows['mlsb']['eager']['steps_s']:.3f}, DFMDock "
+        f"{bf16_windows['dfmdock']['captured']['steps_s']:.3f} / "
+        f"{bf16_windows['dfmdock']['eager']['steps_s']:.3f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

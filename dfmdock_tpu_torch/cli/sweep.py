@@ -42,6 +42,7 @@ from dfmdock_tpu_torch.data.batching import round_up
 from dfmdock_tpu_torch.data.dataset import NPZDataset, batch_to_tensors, complex_to_batch
 from dfmdock_tpu_torch.data.pdb_io import get_full_coords, save_pdb, save_trajectory
 from dfmdock_tpu_torch.eval import compute_metrics
+from dfmdock_tpu_torch.models.egnn_net import pair_rows
 from dfmdock_tpu_torch.train.losses import _bce_logits, interface_labels
 
 # seeds of the ranking draws: draw k of a run seeded s uses
@@ -216,6 +217,7 @@ def _multi_draw_scores(net, raw, pos_all, pad_to, k_draws, seed, device, t_eval=
     keys), so the scores do not depend on what ran before."""
     batch = batch_to_tensors(complex_to_batch(raw, pad_to=pad_to), device)
     batch["h0"] = net.embed_nodes(batch["x"])
+    batch["pair_rows"] = pair_rows(batch)
     pos = torch.as_tensor(np.asarray(pos_all), dtype=torch.float32, device=device)
     labels = interface_labels(pos, batch["lig_mask"], batch["node_mask"])
     acc = {k: np.zeros(pos.shape[0], np.float64) for k in ("energy", "icons", "snorm")}

@@ -2,9 +2,13 @@
 
 By default the training set is featurized once into a pool that lives on
 the device (train/pool.py); each epoch loops over a permutation of its rows,
-rotating each on the device.  `--no-pool` featurizes every step on the host
-instead (for corpora larger than device memory).  Training runs the eager
-path with autograd, in float32 or, with `--compute-dtype bfloat16`, with
+rotating each on the device.  On CUDA each step of the pool path is one
+captured CUDA graph, replayed (train/pool.PoolStep: the first step warms up
+eagerly, the second is captured; a failed capture raises), as the JAX
+package's epoch is one jitted scan; on the CPU the same steps run eagerly.
+`--no-pool` featurizes every step on the host instead (for corpora larger
+than device memory) and runs each step eagerly.  Training runs the eager
+model path with autograd, in float32 or, with `--compute-dtype bfloat16`, with
 the JAX package's bf16 products (each Linear of the node embedding, the
 EGNN and the mlsb energy head takes bf16 inputs and a float32 result); edge
 selection goes through the select_topk kernel on the card, as in every
@@ -49,9 +53,9 @@ from dfmdock_tpu_torch.diffusion import R3Diffuser, SO3Diffuser
 from dfmdock_tpu_torch.train.dfmdock_losses import dfmdock_loss_fn
 from dfmdock_tpu_torch.train.losses import loss_fn as mlsb_loss_fn
 from dfmdock_tpu_torch.train.pool import (
+    PoolStep,
     build_pool,
     make_training_batch,
-    run_epoch,
     train_step,
     upload,
 )
@@ -177,7 +181,10 @@ def experiment_config(args) -> DFMDockConfig:
 
 def main(argv=None) -> dict:
     """Train; returns {"net": the trained model, "rows": the logged metric
-    rows, "steps": optimizer steps, "wall": seconds in the training loop}."""
+    rows, "steps": optimizer steps, "wall": seconds in the training loop,
+    "graph": the pool path's captured graphs (train/pool.PoolStep: captures,
+    replays, and the kernel launches the captures counted and the replays
+    ran)}."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     if args.dp:
@@ -245,6 +252,8 @@ def _train(world, args) -> dict:
                 and (epoch + 1) % args.save_every == 0):
             save(net, os.path.join(args.ckpt_dir, f"epoch{epoch + args.save_offset}"))
 
+    stepper = PoolStep(net, r3, so3, exp, opt, loss, generator, batch_size=args.batch_size,
+                       world=world)
     t0 = time.perf_counter()
     try:
         pool = None
@@ -261,8 +270,8 @@ def _train(world, args) -> dict:
                 if pool is None or (args.pool_refresh and epoch % args.pool_refresh == 0):
                     pool = upload(build_pool(ds, train_idxs, args.crop_size, pad_to, rng,
                                              variants=args.pool_variants), device)
-                metrics = run_epoch(net, r3, so3, exp, opt, loss, pool, generator,
-                                    batch_size=args.batch_size, world=world)
+                    stepper.load(pool)
+                metrics = stepper.epoch()
             log_rows(metrics, epoch)
             maybe_save(epoch)
     finally:
@@ -271,8 +280,12 @@ def _train(world, args) -> dict:
     wall = time.perf_counter() - t0
     if args.ckpt_dir and main_rank:
         save(net, args.ckpt_dir)
-    say(f"trained {it} steps in {wall:.1f} s")
-    return {"net": net, "rows": rows, "steps": it, "wall": wall}
+    graph = {"captures": stepper.captures, "replays": stepper.replays,
+             "captured_launches": stepper.captured_launches,
+             "replayed_launches": stepper.replayed_launches}
+    say(f"trained {it} steps in {wall:.1f} s ({stepper.captures} captured graph(s), "
+        f"{stepper.replays} replays)")
+    return {"net": net, "rows": rows, "steps": it, "wall": wall, "graph": graph}
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ idx [..., N, K].
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -75,9 +76,16 @@ def pairwise_ca_dist(pos: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp((diff * diff).sum(-1), min=1e-12))
 
 
+@functools.cache
+def _boundaries(boundaries: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A boundary tuple as a tensor on `device`, made once: a captured step
+    cannot copy from the host."""
+    return torch.tensor(boundaries, dtype=dtype, device=device)
+
+
 def bin_index(x: torch.Tensor, boundaries) -> torch.Tensor:
     """sum(x > boundaries) as int32 (NaN -> 0)."""
-    b = torch.tensor(boundaries, dtype=x.dtype, device=x.device)
+    b = _boundaries(tuple(boundaries), x.dtype, x.device)
     return (x[..., None] > b).sum(-1).to(torch.int32)
 
 
@@ -148,12 +156,40 @@ def sixd_bins_dense(pos: torch.Tensor):
     return sixd_bins_at(pos, idx)
 
 
+class _TableRows(torch.autograd.Function):
+    """w[idx_0] + w[idx_1] + ... (left to right), with the gradient of w as
+    one GEMM, counts @ grad, counts[v, m] = #{i: idx_i[m] == v}: it sums in
+    a fixed order, where the indexed form's backward is a sorted scatter
+    that adds the rows of one table row in any order
+    (scripts/torch_table_backward.py times both)."""
+
+    @staticmethod
+    def forward(ctx, w, *idx):
+        idx = [i.long() for i in idx]
+        out = w[idx[0]]
+        for i in idx[1:]:
+            out = out + w[i]
+        ctx.save_for_backward(*idx)
+        ctx.rows = w.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.reshape(-1, grad.shape[-1])
+        rows = torch.arange(ctx.rows, device=grad.device)[:, None]
+        counts = sum((i.reshape(1, -1) == rows).to(g.dtype) for i in ctx.saved_tensors)
+        return (counts @ g,) + (None,) * len(ctx.saved_tensors)
+
+
+def table_rows(w: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
+    """sum_i w[idx_i]: w [V, E], each idx [...] integer -> [..., E].  The
+    values are the indexed form's bit for bit; its gradient comes from the
+    [V, M] x [M, E] product of the index counts (_TableRows)."""
+    return _TableRows.apply(w, *idx)
+
+
 def spatial_embed_from_bins(w_spatial, dist_bin, omega_bin, theta_bin, phi_bin):
     """one_hot([dist|omega|theta|phi]) @ w_spatial as four row lookups.
     w_spatial: [SPATIAL_DIM, edge_dim]."""
-    return (
-        w_spatial[dist_bin.long()]
-        + w_spatial[OMEGA_OFFSET + omega_bin.long()]
-        + w_spatial[THETA_OFFSET + theta_bin.long()]
-        + w_spatial[PHI_OFFSET + phi_bin.long()]
-    )
+    return table_rows(w_spatial, dist_bin, OMEGA_OFFSET + omega_bin,
+                      THETA_OFFSET + theta_bin, PHI_OFFSET + phi_bin)

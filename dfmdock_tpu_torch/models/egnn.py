@@ -20,7 +20,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfmdock_tpu_torch.features.positional import relpos_bin_at
-from dfmdock_tpu_torch.features.sixd import gather_rows, sixd_bins_at, spatial_embed_from_bins
+from dfmdock_tpu_torch.features.sixd import (
+    gather_rows,
+    sixd_bins_at,
+    spatial_embed_from_bins,
+    table_rows,
+)
 from dfmdock_tpu_torch.models.modules import GraphNorm, linear
 from dfmdock_tpu_torch.ops.edge_table import build_edge_table, edge_bins, edge_geometry
 from dfmdock_tpu_torch.ops.fused_egcl import fused_edge_layer, prepare_layer, rounding
@@ -136,7 +141,7 @@ def edge_stack(c, layers, spatial_w, positional_w, batch, pos, h, idx, edge_mask
                                 ebin, egeo, node_mask, lig_valid, dtype)
     rp = relpos_bin_at(batch["res_id"], batch["asym_id"], idx)
     db, ob, tb, pb = sixd_bins_at(pos.detach(), idx)
-    edge_attr = spatial_embed_from_bins(spatial_w, db, ob, tb, pb) + positional_w[rp.long()]
+    edge_attr = spatial_embed_from_bins(spatial_w, db, ob, tb, pb) + table_rows(positional_w, rp)
     return egnn_apply(layers, h, ca, idx, edge_mask, edge_attr, node_mask, lig_valid,
                       normalize=c.normalize, dtype=dtype)
 

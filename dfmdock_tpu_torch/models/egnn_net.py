@@ -19,8 +19,11 @@ pre-split into h_i W[:C] + h_j W[C:2C] + D W[2C], so [P, R, L, C] never
 materializes.  The scan covers receptor rows x ligand columns only: every
 other pair of the JAX scan over all N x N is masked to exactly 0, so the
 sums are the same up to their order (the JAX scan adds 64-row chunks of
-all N rows; here 64-row chunks of the receptor rows).  D and the cutoff
-masks are the CA distances of the (detached) input pose.
+all N rows; here 64-row chunks of the receptor rows).  The rows come as
+index lists (`pair_rows`), whose lengths `torch.nonzero` reads from the
+device: the samplers make them once per dock (batch['pair_rows'], as
+h0), so a dock's forwards take one shape and no host sync.  D and the
+cutoff masks are the CA distances of the (detached) input pose.
 
 The net does not centre its input; `dfmdock.DFMDockModel` does.
 
@@ -58,6 +61,17 @@ from dfmdock_tpu_torch.models.score_net import ScaleMLP, pose_scores
 
 ROW_CHUNK = 64
 NUM_DIST_BINS = 64  # distogram head
+
+
+def pair_rows(batch: dict):
+    """(rec_idx [R], lig_idx [L]): the valid receptor and ligand rows of a
+    padded complex, in ascending order.  torch.nonzero reads their counts
+    from the device (a host sync), so the samplers make them once per dock
+    and pass them as batch['pair_rows']."""
+    valid = batch["node_mask"].to(torch.float32)
+    lig = batch["lig_mask"] * valid
+    rec = (1.0 - batch["lig_mask"]) * valid
+    return torch.nonzero(rec > 0).squeeze(-1), torch.nonzero(lig > 0).squeeze(-1)
 
 
 class PairHead(nn.Module):
@@ -142,7 +156,9 @@ class EGNNNet(nn.Module):
             c, self.egnn, self.spatial_embed.weight.t(), self.positional_embed.weight.t(),
             batch, pos, h, idx, edge_mask, lig_valid, dtype=compute_dtype(c))
 
-        heads = self._pair_heads(h, ca, dist, rec_valid > 0, lig_valid > 0, scores_only)
+        rows = batch["pair_rows"] if "pair_rows" in batch else pair_rows(batch)
+        heads = self._pair_heads(h, ca, dist, *rows, rec_valid.sum() * lig_valid.sum(),
+                                 scores_only)
         if c.agg == "mean":
             f = heads["f"] / rec_valid.sum().clamp(min=1.0)
             n_lig = lig_valid.sum().clamp(min=1.0)
@@ -154,7 +170,7 @@ class EGNNNet(nn.Module):
         e_num, e_den = heads["energy"]
         out["energy"] = e_num / e_den.clamp(min=1.0) if c.agg == "mean" else e_num
         c_num, c_den = heads["confidence"]
-        out["confidence_logits"] = c_num / max(c_den, 1.0)
+        out["confidence_logits"] = c_num / c_den.clamp(min=1.0)
         out["ires_logits"] = self._ires(h)
         out["num_clashes"] = heads["num_clashes"]
         return out
@@ -260,8 +276,11 @@ class EGNNNet(nn.Module):
         for s in range(0, n, ROW_CHUNK):
             e = slice(s, s + ROW_CHUNK)
             gt_c = None if gt_dist is None else gt_dist[:, e]
+            # the chunks draw nothing: no RNG state to keep (a captured step
+            # may not read it)
             out = checkpoint(rows, s, dist[:, e], energy_mask[:, e], pair_valid[e],
-                             ca[:, e], gt_c, parts, use_reentrant=False)
+                             ca[:, e], gt_c, parts, use_reentrant=False,
+                             preserve_rng_state=False)
             for k, v in out.items():
                 total[k] = total[k] + v if k in total else v
         return total
@@ -282,21 +301,21 @@ class EGNNNet(nn.Module):
             e = slice(s, s + ROW_CHUNK)
             num_c, g_i_c, g_j_c, _ = checkpoint(
                 pair_energy_rows, eh_i[:, e], eh_j, energy_mask[:, e], *args,
-                dist[:, e], w[:, -1], True, use_reentrant=False)
+                dist[:, e], w[:, -1], True, use_reentrant=False,
+                preserve_rng_state=False)
             nums.append(num_c)
             g_i.append(g_i_c)
             g_j = g_j + g_j_c
         g_h = torch.cat(g_i, -2) @ w[:, :c] + g_j @ w[:, c : 2 * c]
         return sum(nums), g_h
 
-    def _pair_heads(self, h, ca, dist, rec, lig, scores_only):
-        """The pair heads over receptor rows x ligand columns, in chunks of
-        ROW_CHUNK receptor rows.  Returns f [P, N, 3] (the force summed over
-        receptor rows, on ligand rows; 0 elsewhere) and, unless
-        `scores_only`, the energy's masked sum and count [P], the
-        confidence's sum [P] and count, and num_clashes [P]."""
-        rec_idx = torch.nonzero(rec).squeeze(-1)
-        lig_idx = torch.nonzero(lig).squeeze(-1)
+    def _pair_heads(self, h, ca, dist, rec_idx, lig_idx, n_pairs, scores_only):
+        """The pair heads over receptor rows x ligand columns (`pair_rows`),
+        in chunks of ROW_CHUNK receptor rows; n_pairs the pairs' count (a
+        0-d tensor).  Returns f [P, N, 3] (the force summed over receptor
+        rows, on ligand rows; 0 elsewhere) and, unless `scores_only`, the
+        energy's masked sum and count [P], the confidence's sum [P] and
+        count, and num_clashes [P]."""
         p, n = h.shape[:2]
         h_l, ca_l = h[:, lig_idx], ca[:, lig_idx]
         d_rl = dist[:, rec_idx][:, :, lig_idx]  # [P, R, L]
@@ -324,7 +343,7 @@ class EGNNNet(nn.Module):
         out = {"f": f}
         if not scores_only:
             out["energy"] = (e_num, e_den)
-            out["confidence"] = (c_num, float(rec_idx.numel() * lig_idx.numel()))
+            out["confidence"] = (c_num, n_pairs)
             out["num_clashes"] = (d_rl <= 3.0).sum((-2, -1)).to(torch.int32)
         return out
 

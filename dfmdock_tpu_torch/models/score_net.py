@@ -170,7 +170,8 @@ class ScoreNet(nn.Module):
         eager path whatever `cfg.use_pallas` says (the kernels are
         inference-only on both sides), its products cast as
         `cfg.compute_dtype` says, dropout in the scale MLPs, the energy head
-        in row chunks under activation checkpointing.
+        in row chunks under activation checkpointing (the chunks draw
+        nothing, so no RNG state is kept: a captured step may not read it).
 
         pos [P, N, 3, 3] and t (a float or a tensor) as `forward`; the edge
         noise, injected Gumbel noise or edges as there, the dropout masks
@@ -245,7 +246,8 @@ class ScoreNet(nn.Module):
         chunk = min(ENERGY_ROW_CHUNK, h.shape[-2])
         num = sum(checkpoint(pair_energy_rows, hr[:, s : s + chunk], hl,
                              pair_mask[:, s : s + chunk], *head, dtype=dtype,
-                             use_reentrant=False)
+                             use_reentrant=False,
+                             preserve_rng_state=False)
                   for s in range(0, h.shape[-2], chunk))
         return num / (pair_mask.sum((-2, -1)) + 1e-6)
 
@@ -261,7 +263,8 @@ class ScoreNet(nn.Module):
         for s in range(0, n, chunk):
             num_c, g_hr_c, g_hl_c, _ = checkpoint(
                 pair_energy_rows, hr[:, s : s + chunk], hl, pair_mask[:, s : s + chunk],
-                *head, None, None, True, dtype=dtype, use_reentrant=False)
+                *head, None, None, True, dtype=dtype, use_reentrant=False,
+                preserve_rng_state=False)
             nums.append(num_c)
             g_hr.append(g_hr_c)
             g_hl = g_hl + g_hl_c

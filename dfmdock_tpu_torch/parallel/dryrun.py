@@ -80,7 +80,7 @@ def _dryrun_rank(world) -> dict:
     )
     from dfmdock_tpu_torch.sampler import EMSampler
     from dfmdock_tpu_torch.train.losses import loss_fn
-    from dfmdock_tpu_torch.train.pool import run_epoch, upload
+    from dfmdock_tpu_torch.train.pool import PoolStep, upload
     from dfmdock_tpu_torch.train.trainer import make_optimizer
 
     # the translation SDE scaled to the toy complex (max_sigma 2 A): at 30 A
@@ -113,8 +113,10 @@ def _dryrun_rank(world) -> dict:
     # 1b) one pooled epoch split over the ranks: two steps of n rows
     before = {k: v.clone() for k, v in net.state_dict().items()}
     pool = upload(stack_batches([_tiny(s) for s in range(2 * n)]), dev)
-    m = run_epoch(net, r3, so3, cfg.experiment, opt, loss_fn, pool,
-                  torch.Generator(dev).manual_seed(7), batch_size=n, world=world)
+    stepper = PoolStep(net, r3, so3, cfg.experiment, opt, loss_fn,
+                       torch.Generator(dev).manual_seed(7), batch_size=n, world=world)
+    stepper.load(pool)
+    m = stepper.epoch()
     out["pool_losses"] = m["loss"].tolist()
     out["pool_delta"] = _max_delta(before, net)
     _check(len(out["pool_losses"]) == 2, f"expected 2 pooled dp steps, got {out['pool_losses']}")

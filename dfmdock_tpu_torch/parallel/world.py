@@ -222,7 +222,13 @@ def all_reduce_mean_grads(net: torch.nn.Module, world: World):
     offset = 0
     for p, r in zip(params, reached):
         n = p.numel()
-        p.grad = flat[offset : offset + n].view_as(p).clone() if r else None
+        mean = flat[offset : offset + n].view_as(p)
+        if not r:
+            p.grad = None
+        elif p.grad is None:
+            p.grad = mean.clone()
+        else:  # in place: a captured optimizer step reads the gradients' buffers
+            p.grad.copy_(mean)
         offset += n
 
 

@@ -17,6 +17,7 @@ from dfmdock_tpu_torch.config import SamplerConfig
 from dfmdock_tpu_torch.diffusion import R3Diffuser, SO3Diffuser
 from dfmdock_tpu_torch.geom import axis_angle_to_matrix, compose_axis_angle, matrix_to_axis_angle
 from dfmdock_tpu_torch.geom.rotations import quaternion_to_matrix
+from dfmdock_tpu_torch.models.egnn_net import pair_rows
 
 
 def _lig_center(pos, lig_mask, mode: str):
@@ -136,6 +137,8 @@ class EMSampler:
         batch = dict(batch)
         if "h0" not in batch:
             batch["h0"] = self.net.embed_nodes(batch["x"])
+        if "pair_rows" not in batch:  # the DFMDock net's pair heads' rows, made once
+            batch["pair_rows"] = pair_rows(batch)
         lig_mask = batch["lig_mask"]
         if init is None:
             pos, tr_u, rot_u = randomize_pose(generator, batch["pos"], lig_mask,

@@ -23,6 +23,7 @@ import torch
 from dfmdock_tpu_torch.config import SamplerConfig
 from dfmdock_tpu_torch.geom import compose_axis_angle
 from dfmdock_tpu_torch.models.edges import sample_gumbel
+from dfmdock_tpu_torch.models.egnn_net import pair_rows
 from dfmdock_tpu_torch.sampler.em import modify_coords, randomize_pose, step_schedule
 
 
@@ -58,6 +59,8 @@ class PicardSampler:
         batch = dict(batch)
         if "h0" not in batch:
             batch["h0"] = self.net.embed_nodes(batch["x"])
+        if "pair_rows" not in batch:  # the DFMDock net's pair heads' rows, made once
+            batch["pair_rows"] = pair_rows(batch)
         lig_mask = batch["lig_mask"]
         if init is None:
             pos0, tr_u, rot_u = randomize_pose(generator, batch["pos"], lig_mask,

@@ -3,10 +3,11 @@
 The training set is featurized once on the host (crops, chain swaps and
 augmentation rotations from a `np.random.RandomState`, so a seed gives the
 JAX package's pool exactly), stacked into one [B, ...] pool and uploaded
-once.  An epoch is a plain loop over a permutation of the pool's rows, each
-visit rotated on the device by a uniform SO(3) rotation drawn from the
-run's `torch.Generator`; the per-step metrics stay on the device until the
-epoch ends.  `batch_size` B averages the gradients of B rows per optimizer
+once.  An epoch is a loop over a permutation of the pool's rows, each visit
+rotated on the device by a uniform SO(3) rotation drawn from the run's
+`torch.Generator`; the per-step metrics stay on the device until the epoch
+ends.  `PoolStep` runs the steps, on CUDA as one captured graph replayed
+per step.  `batch_size` B averages the gradients of B rows per optimizer
 step (the JAX package's vmap), one forward and backward after another.
 
 Crop and chain-swap variants are baked per pool build; the training CLI
@@ -16,11 +17,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dfmdock_tpu_torch.data.batching import pad_complex
 from dfmdock_tpu_torch.data.crop import crop_complex
 from dfmdock_tpu_torch.features.residues import sequence_to_onehot
 from dfmdock_tpu_torch.geom import random_rotation_matrix
+from dfmdock_tpu_torch.ops import launch_counts
 from dfmdock_tpu_torch.parallel.world import all_reduce_mean, all_reduce_mean_grads
 
 MODEL_KEYS = ("x", "pos", "node_mask", "lig_mask", "res_id", "asym_id")
@@ -108,38 +111,198 @@ def rotate_batch(batch: dict, generator: torch.Generator) -> dict:
     return {**batch, "pos": ((pos - cen) @ R.T) * valid[:, None, None]}
 
 
-def run_epoch(net, r3, so3, exp, opt, loss_fn, pool: dict, generator: torch.Generator,
-              batch_size: int = 1, world=None) -> dict:
-    """One epoch over the device pool: a random permutation of its rows,
-    `batch_size` rows a step (their gradients averaged), each row rotated
-    then passed to `loss_fn`.  Returns {metric: [steps] tensor} on the
-    device (the mean over each step's rows).
+class PoolStep:
+    """Training over a device pool, one optimizer step at a time, each
+    reading all it needs from static buffers: the pool, the epoch's
+    permutation of its rows and the step's index in it, all on the device,
+    so that no step waits on the host.  The port's counterpart of the JAX
+    package's `one_epoch` scan.
+
+    A step gathers its `batch_size` rows through the permutation, rotates
+    each and draws its perturbation from `generator` (`rotate_batch`, the
+    loss), runs the forward and backward (the mean of the rows' gradients)
+    and the optimizer, and writes its metrics into the epoch's [steps]
+    history.  On CUDA the first step of each buffer shape runs eagerly on a
+    side stream (the warm-up, a real step); the next is captured as one
+    CUDA graph, with `generator` registered with it, and every later step
+    replays that graph.  A failed capture or replay raises: there is no
+    eager fallback.  On the CPU every step runs the same code eagerly,
+    bit-equal to `train_step` on the same rows.
 
     With `world` (a parallel.World; the pool and `generator` the same on
     every rank) each step's rows are split over the ranks in contiguous
     blocks: a rank rotates and draws its rows from its own generator
-    (`World.rank_generator`) and the gradients and metrics are averaged
-    over the ranks (parallel.mesh)."""
-    rows = pool["x"].shape[0]
-    steps = rows // batch_size
-    if steps * batch_size != rows:
-        raise ValueError(f"pool rows {rows} must be a multiple of batch_size {batch_size}")
-    lo, hi, row_gen = 0, batch_size, generator
-    if world is not None:
-        if batch_size % world.size:
-            raise ValueError(f"batch_size {batch_size} does not split over {world.size} ranks")
-        per = batch_size // world.size
-        lo, hi = world.rank * per, (world.rank + 1) * per
-        row_gen = world.rank_generator(generator)
-    perm = torch.randperm(rows, generator=generator, device=pool["x"].device)
-    history = []
-    for i in range(steps):
-        history.append(train_step(
-            net, r3, so3, exp, opt, loss_fn,
-            [{k: v[perm[j : j + 1]][0] for k, v in pool.items()}  # no host sync
-             for j in range(i * batch_size + lo, i * batch_size + hi)],
-            row_gen, rotate=True, world=world))
-    return {k: torch.stack([m[k] for m in history]) for k in history[0]}
+    (`World.rank_generator`), and the gradients and metrics are averaged
+    over the ranks (parallel.mesh) by eager collectives between two
+    graphs, the forward and backward's and the optimizer's.
+
+    `captures` and `replays` count the graphs made and run; the wrappers'
+    launch counts (`ops.launch_counts`) move only when a graph is captured,
+    so `captured_launches` holds what the captures counted and
+    `replayed_launches` what the replays launched."""
+
+    def __init__(self, net, r3, so3, exp, opt, loss_fn, generator: torch.Generator,
+                 batch_size: int = 1, world=None, capture: bool | None = None):
+        """`capture`: run the steps as captured graphs (default: on CUDA;
+        False runs them eagerly there too, as a reference)."""
+        self.net, self.r3, self.so3, self.exp = net, r3, so3, exp
+        self.capture = capture
+        self.opt, self.loss_fn, self.generator = opt, loss_fn, generator
+        self.batch_size, self.world = batch_size, world
+        self.lo, self.hi, self.row_gen = 0, batch_size, generator
+        if world is not None:
+            if batch_size % world.size:
+                raise ValueError(f"batch_size {batch_size} does not split over {world.size} "
+                                 "ranks")
+            per = batch_size // world.size
+            self.lo, self.hi = world.rank * per, (world.rank + 1) * per
+            self.row_gen = world.rank_generator(generator)
+        self.pool = None
+        self.graphs = None
+        self.captures = self.replays = 0
+        self.captured_launches, self.replayed_launches = {}, {}
+
+    def load(self, pool: dict):
+        """Take a device pool: copied into the buffers where every array
+        keeps its shape and dtype (the graphs stay), else held as new
+        buffers (the next steps warm up and capture again)."""
+        same = self.pool is not None and pool.keys() == self.pool.keys() and all(
+            v.shape == self.pool[k].shape and v.dtype == self.pool[k].dtype
+            for k, v in pool.items())
+        if same:
+            for k, v in pool.items():
+                self.pool[k].copy_(v)
+            return
+        rows = pool["x"].shape[0]
+        if rows % self.batch_size:
+            raise ValueError(f"pool rows {rows} must be a multiple of batch_size "
+                             f"{self.batch_size}")
+        self.pool = {k: v.clone() for k, v in pool.items()}
+        device = pool["x"].device
+        self.perm = torch.zeros(rows, dtype=torch.long, device=device)
+        self.i = torch.zeros((), dtype=torch.long, device=device)
+        self.keys = self.hist = None
+        self.graphs = None
+
+    def epoch(self) -> dict:
+        """One epoch over a random permutation of the pool's rows.  Returns
+        {metric: [steps] tensor} on the device (each step's mean over its
+        rows)."""
+        for _ in range(self.start()):
+            self.step()
+        return self.history()
+
+    def start(self) -> int:
+        """Begin an epoch: the pool's rows permuted (drawn from `generator`),
+        the step index at 0.  Returns the epoch's number of steps."""
+        rows = self.perm.numel()
+        self.perm.copy_(torch.randperm(rows, generator=self.generator, device=self.perm.device))
+        self.i.zero_()
+        return rows // self.batch_size
+
+    def history(self) -> dict:
+        """{metric: [steps] tensor} of the epoch's steps so far."""
+        return {k: self.hist[:, j].clone() for j, k in enumerate(self.keys)}
+
+    def step(self):
+        """One optimizer step (the epoch's next rows)."""
+        capture = self.perm.device.type == "cuda" if self.capture is None else self.capture
+        if not capture:
+            self._eager()
+        elif self.graphs is None and self.hist is None:
+            side = torch.cuda.Stream(device=self.perm.device)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._eager()
+            torch.cuda.current_stream().wait_stream(side)
+        else:
+            if self.graphs is None:
+                self._capture()
+            self._replay()
+
+    def _forward_backward(self):
+        """The step's rows through the loss and its backward; the metrics'
+        mean into `self.m` (made on the first step, as the history)."""
+        base = self.i * self.batch_size
+        batches = []
+        for j in range(self.lo, self.hi):
+            row = self.perm.index_select(0, (base + j).reshape(1))
+            batches.append({k: v.index_select(0, row)[0] for k, v in self.pool.items()})
+        self.opt.zero_grad(set_to_none=True)
+        total = backward_rows(self.net, self.r3, self.so3, self.exp, self.loss_fn, batches,
+                              self.row_gen, rotate=True)
+        if self.keys is None:
+            self.keys = list(total)
+            self.m = torch.zeros(len(self.keys), device=self.perm.device)
+            self.hist = torch.zeros(self.perm.numel() // self.batch_size, len(self.keys),
+                                    device=self.perm.device)
+        self.m.copy_(torch.stack([total[k] for k in self.keys]))
+
+    def _reduce(self):
+        """The ranks' mean of the gradients and metrics (with `world`)."""
+        all_reduce_mean_grads(self.net, self.world)
+        dist.all_reduce(self.m, op=dist.ReduceOp.SUM)
+        self.m /= self.world.size
+
+    def _record(self):
+        self.hist.index_copy_(0, self.i.reshape(1), self.m[None])
+        self.i += 1
+
+    def _eager(self):
+        self._forward_backward()
+        if self.world is not None:
+            self._reduce()
+        self._record()
+        self.opt.step()
+
+    def _capture(self):
+        """The step as CUDA graphs: one, or with `world` the forward and
+        backward's and the optimizer's, the reduction between them eager."""
+        before = launch_counts()
+        if self.world is None:
+            parts = [lambda: (self._forward_backward(), self._record(), self.opt.step())]
+        else:
+            parts = [self._forward_backward, self.opt.step]
+        graphs = []
+        for k, part in enumerate(parts):
+            g = torch.cuda.CUDAGraph()
+            if k == 0:
+                g.register_generator_state(self.row_gen)
+            with torch.cuda.graph(g):
+                part()
+            graphs.append(g)
+        self.graphs = graphs
+        self.captures += 1
+        self._per_replay = {k: v - before[k] for k, v in launch_counts().items()
+                            if v != before[k]}
+        for k, v in self._per_replay.items():
+            self.captured_launches[k] = self.captured_launches.get(k, 0) + v
+
+    def _replay(self):
+        self.graphs[0].replay()
+        if self.world is not None:
+            self._reduce()
+            self._record()
+            self.graphs[1].replay()
+        self.replays += 1
+        for k, v in self._per_replay.items():
+            self.replayed_launches[k] = self.replayed_launches.get(k, 0) + v
+
+
+def backward_rows(net, r3, so3, exp, loss_fn, batches: list, generator, rotate=False) -> dict:
+    """The loss of each of `batches` (one padded complex each) and its
+    backward, scaled by 1 / len(batches), so that the gradients accumulate
+    to their mean.  Returns the mean of their metrics (0-d tensors,
+    detached)."""
+    total = {}
+    for batch in batches:
+        if rotate:
+            batch = rotate_batch(batch, generator)
+        loss, metrics = loss_fn(net, r3, so3, batch, generator, exp)
+        (loss / len(batches)).backward()
+        for k, v in metrics.items():
+            total[k] = total.get(k, 0.0) + v.detach() / len(batches)
+    return total
 
 
 def train_step(net, r3, so3, exp, opt, loss_fn, batches: list, generator, rotate=False,
@@ -150,14 +313,7 @@ def train_step(net, r3, so3, exp, opt, loss_fn, batches: list, generator, rotate
     gradients and metrics are then averaged over the ranks, each rank
     having passed its own rows."""
     opt.zero_grad(set_to_none=True)
-    total = {}
-    for batch in batches:
-        if rotate:
-            batch = rotate_batch(batch, generator)
-        loss, metrics = loss_fn(net, r3, so3, batch, generator, exp)
-        (loss / len(batches)).backward()
-        for k, v in metrics.items():
-            total[k] = total.get(k, 0.0) + v.detach() / len(batches)
+    total = backward_rows(net, r3, so3, exp, loss_fn, batches, generator, rotate)
     if world is not None:
         all_reduce_mean_grads(net, world)
         total = all_reduce_mean(total, world)

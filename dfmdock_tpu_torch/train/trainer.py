@@ -27,9 +27,12 @@ WEIGHTS = "weights.npz"
 
 
 def make_optimizer(net: torch.nn.Module, exp: ExperimentConfig) -> torch.optim.AdamW:
-    """AdamW over every trainable parameter (t_embed.W is a buffer)."""
-    return torch.optim.AdamW([p for p in net.parameters() if p.requires_grad],
-                             lr=exp.lr, weight_decay=exp.weight_decay)
+    """AdamW over every trainable parameter (t_embed.W is a buffer); on CUDA
+    `capturable`, its step counts on the device, so that a captured
+    training step (train/pool.PoolStep) holds the optimizer too."""
+    params = [p for p in net.parameters() if p.requires_grad]
+    return torch.optim.AdamW(params, lr=exp.lr, weight_decay=exp.weight_decay,
+                             capturable=params[0].device.type == "cuda")
 
 
 def save(net: torch.nn.Module, path: str):

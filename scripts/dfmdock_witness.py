@@ -34,7 +34,9 @@ the 128-residue bucket):
   the edges through the net's `gumbel=` on each forward (`CPUDraws`).  The
   draws are then the `port` side's own at the same seed, so what differs
   from it is the card's rounding alone.
-The CUDA sides need a card; without JAX installed, run them alone.
+The CUDA sides need a card; without JAX installed, run them alone.  The
+port sides also take other weights (`--ckpt`, their runs named SIDE@TAG by
+`--tag`) and the four held-out complexes (`eval_holdout.csv`).
 Prints one line per run and side: each complex's mean DockQ over all poses,
 its best and its min-energy pick, then the means of each side over all runs
 beside the record (eval_train.csv, made on a TPU v5e).  `--summarize DIR`
@@ -61,14 +63,20 @@ sys.path.insert(0, ROOT)
 
 CKPT = os.path.join(ROOT, "ckpts", "db5_holdout_dfmdock")
 RECORD = os.path.join(CKPT, "eval_train.csv")
+HOLDOUT_RECORD = os.path.join(CKPT, "eval_holdout.csv")
 DATA = os.path.join(ROOT, "data", "db5_npz")
 RECORD_ORDER = ("1AVX", "1ZHI", "2SNI", "4POU")  # the record sweep's ids, in order
+HOLDOUT_ORDER = ("1QA9", "7CEI", "2SIC", "1JPS")  # held out of training (eval_holdout.csv)
 BUCKET = 128
 
 
 def record_groups():
-    with open(RECORD) as f:
-        return groups_of(csv.DictReader(f))
+    """The JAX record's sweeps: the training set and the held-out set."""
+    out = {}
+    for path in (RECORD, HOLDOUT_RECORD):
+        with open(path) as f:
+            out.update(groups_of(csv.DictReader(f)))
+    return out
 
 
 def groups_of(rows):
@@ -233,7 +241,7 @@ def jax_draws_side(ids, seed, num_samples, num_steps, device="cuda"):
     return groups_of(rows)
 
 
-def port_side(ids, seed, num_samples, num_steps, side):
+def port_side(ids, seed, num_samples, num_steps, side, weights=None):
     import torch
 
     from dfmdock_tpu_torch.cli import sweep
@@ -243,7 +251,8 @@ def port_side(ids, seed, num_samples, num_steps, side):
     route = PORT_ROUTES[side]
     model = ModelConfig.fast(**PORT_MODELS[side]) if side in PORT_MODELS else None
     with tempfile.TemporaryDirectory() as tmp:
-        rows = sweep.main(["--lineage", "dfmdock", "--ckpt", os.path.join(CKPT, "weights.npz"),
+        rows = sweep.main(["--lineage", "dfmdock", "--ckpt",
+                           weights or os.path.join(CKPT, "weights.npz"),
                            "--data-dir", DATA, "--ids", ",".join(ids), "--num-samples",
                            str(num_samples), "--num-steps", str(num_steps), "--seed",
                            str(seed), "--out-csv", os.path.join(tmp, "sweep.csv")] + route,
@@ -338,6 +347,12 @@ def main(argv=None):
     ap.add_argument("--num-samples", type=int, default=40)
     ap.add_argument("--num-steps", type=int, default=40)
     ap.add_argument("--sides", default="jax-bf16,jax-f32,port")
+    ap.add_argument("--ckpt", default=None,
+                    help="the port sides' weights (a weights.npz; default the JAX record's, "
+                         "ckpts/db5_holdout_dfmdock/weights.npz)")
+    ap.add_argument("--tag", default="",
+                    help="appended to the side names as SIDE@TAG, so that --summarize "
+                         "pairs runs of other weights")
     ap.add_argument("--out-dir", default=None,
                     help="write each run's per-pose DockQ and energy here as CSV")
     ap.add_argument("--summarize", default=None, metavar="DIR",
@@ -348,9 +363,14 @@ def main(argv=None):
     if args.summarize:
         return summarize(args.summarize)
     ids = [s for s in args.ids.split(",") if s]
-    if not set(ids) <= set(RECORD_ORDER):
-        ap.error(f"--ids must be among {RECORD_ORDER}")
     sides = args.sides.split(",")
+    port_only = all(s in PORT_ROUTES for s in sides)
+    allowed = RECORD_ORDER + HOLDOUT_ORDER if port_only else RECORD_ORDER
+    if not set(ids) <= set(allowed):
+        ap.error(f"--ids must be among {allowed} (the held-out ones on the port sides "
+                 f"{', '.join(PORT_ROUTES)} alone)")
+    if args.ckpt and not port_only:
+        ap.error(f"--ckpt applies to the port sides {', '.join(PORT_ROUTES)} alone")
     if not set(sides) <= {"jax-bf16", "jax-f32", *PORT_ROUTES, *CPU_DRAW_SIDES, JAX_DRAWS_SIDE}:
         ap.error(f"--sides takes jax-bf16, jax-f32, {', '.join(PORT_ROUTES)}, "
                  f"{', '.join(CPU_DRAW_SIDES)} and {JAX_DRAWS_SIDE}")
@@ -366,20 +386,21 @@ def main(argv=None):
                 g = port_cpu_draws_side(ids, seed, args.num_samples, args.num_steps,
                                         CPU_DRAW_SIDES[side])
             elif side.startswith("port"):
-                g = port_side(ids, seed, args.num_samples, args.num_steps, side)
+                g = port_side(ids, seed, args.num_samples, args.num_steps, side, args.ckpt)
             else:
                 g = jax_side(ids, seed, args.num_samples, args.num_steps,
                              {"jax-bf16": "bfloat16", "jax-f32": "float32"}[side])
             runs[side].append(g)
+            label = f"{side}@{args.tag}" if args.tag else side
             if args.out_dir:
                 os.makedirs(args.out_dir, exist_ok=True)
-                name = f"{side}_seed{seed}_{'-'.join(ids)}.csv"
+                name = f"{label}_seed{seed}_{'-'.join(ids)}.csv"
                 with open(os.path.join(args.out_dir, name), "w") as f:
                     f.write("id,index,DockQ,energy\n")
                     for k, a in sorted(g.items()):
                         f.writelines(f"{k},{i},{float(d)!r},{float(e)!r}\n"
                                      for i, (d, e) in enumerate(a))
-            print(f"# {side}, seed {seed}: {fmt(g)} ({time.perf_counter() - t0:.1f} s)",
+            print(f"# {label}, seed {seed}: {fmt(g)} ({time.perf_counter() - t0:.1f} s)",
                   flush=True)
     for side, gs in runs.items():
         per = "; ".join(

@@ -112,6 +112,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the f32 window's, and one eager predict forward of each lineage at
      ModelConfig(compute_dtype="bfloat16") (trained weights, injected
      edges) on the card against the CPU (BF16_PREDICT_REL);
+ 9n. the training CLI's --no-pool path (the eager loop that featurizes
+     each step on the host), both lineages at 9g's and 9h's protocols cut to
+     one epoch: no graph captured, only select_topk launching; its first
+     step made again from the CLI's start gives the CLI's logged losses, and
+     on the card against the CPU at 9g's bounds;
  9i. dp dock: the dock CLI with --dp (torch.distributed, one NCCL rank on
      the card) on 1AVX with the trained mlsb weights, 16 poses x 40 steps,
      against the plain dock at the same seed, on each route: poses,
@@ -147,7 +152,7 @@ kernel-side form built once, B as bf16 in the bf16 mode).  A failing
 card-vs-CPU training step (9g, 9h, 9m) is kept under
 chiprun_out/train_step_failures/ and replayed in float64 before the run
 fails.
-Each main path (phases 5, 8, 9, 9b-9e, 9g-9k, 9m and the routes of 10) runs with the
+Each main path (phases 5, 8, 9, 9b-9e, 9g-9k, 9m, 9n and the routes of 10) runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
 path that did not launch (or one that must not run and did: the other
 precision's fused_egcl mode, and on the DFMDock lineage the coord and
@@ -417,6 +422,10 @@ TRAIN_FAILURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ch
                                  "train_step_failures")
 TRAIN_ABSENT = ("edge_table", "fused_egcl", "fused_egcl_coord", "fused_energy", "edge_bins")
 TRAIN_PROFILE_STEPS = 20
+# The --no-pool path (9n): one epoch of each protocol, every step logged
+# (rounded to 5 decimals, hence NO_POOL_LOG_ABS), select_topk launches a step
+NO_POOL_EPOCHS, NO_POOL_LOG_ABS = 1, 1e-5
+NO_POOL_SELECTS = {"mlsb": 2, "dfmdock": 1}
 DP_CROP = 448  # the dp training step's crop (phase 9k)
 # bfloat16 compute (phase 9m): the training CLI at 9g's and 9h's protocols
 # cut to one epoch.  One bf16 step on the card against the CPU: each side
@@ -1944,7 +1953,7 @@ def replay_failing_step(path, device, worst=5):
 
 
 def train_step_parity(label, lineage, flags, weights, device,
-                      tols=(TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR)):
+                      tols=(TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR), row=None):
     """One training step on the card against the same step on the CPU: the
     same weights, one pool row, an injected perturbation, dropout 0 and
     kNN-only edges (sample_size 0: the card selects through select_topk,
@@ -1952,12 +1961,13 @@ def train_step_parity(label, lineage, flags, weights, device,
     grad_floor): the loss terms within loss_rel and every gradient within
     grad_rel of its array's largest (the floor grad_floor of the largest
     gradient of all, for arrays whose gradient is zero by construction,
-    such as the bias before a GraphNorm); by default the float32 ones.  A
-    failing step is kept and replayed in float64 (keep_failing_step) before
-    the check fails with its own failures, whether or not the replay ran."""
+    such as the bias before a GraphNorm); by default the float32 ones.
+    `row`: (pool row, perturbation) in place of step_row's.  A failing step
+    is kept and replayed in float64 (keep_failing_step) before the check
+    fails with its own failures, whether or not the replay ran."""
     loss_rel, grad_rel, grad_floor = tols
     cfg = step_config(flags, device)
-    row, inj = step_row(flags, device)
+    row, inj = step_row(flags, device) if row is None else row
     terms, grads = {}, {}
     for dev in (device, torch.device("cpu")):
         t0 = time.perf_counter()
@@ -2261,6 +2271,73 @@ def check_graphs(label, out):
     if (g["captures"], g["replays"]) != (1, steps - 1):
         raise AssertionError(f"{label}: {g['captures']} captures and {g['replays']} replays "
                              f"in {steps} steps, expected 1 and {steps - 1}")
+
+
+def first_no_pool_row(args):
+    """The pool row that the training CLI's --no-pool path at `args` trains
+    on first: its host RNG seeded, the epoch's permutation drawn, then the
+    first complex featurized (cli/train.py)."""
+    ds = NPZDataset(args.data_dir)
+    idxs = np.arange(len(ds))
+    if args.exclude_ids:
+        excl = set(args.exclude_ids.split(","))
+        idxs = np.array([i for i in idxs if ds.ids[i] not in excl])
+    rng = np.random.RandomState(args.seed)
+    first = int(rng.permutation(idxs)[0])
+    return make_training_batch(ds.load_raw(first), args.crop_size, round_up(args.crop_size),
+                               rng)
+
+
+def no_pool_phase(out_root, device):
+    """9n. The training CLI's --no-pool path (each step featurized on the
+    host and run eagerly, the JAX package's other training loop) at 9g's
+    and 9h's protocols cut to NO_POOL_EPOCHS, logging every step: no graph
+    captured, only select_topk launching (NO_POOL_SELECTS a step), finite
+    losses.  Its first step made again on the card from the CLI's own start
+    (the seeded weights, the row its host RNG makes first, its generator's
+    seed) gives the CLI's logged losses (rel TRAIN_LOSS_REL, the log's
+    rounding NO_POOL_LOG_ABS); that step with step_row's injected
+    perturbation on the card against the CPU at 9g's bounds
+    (train_step_parity)."""
+    for lineage, flags in (("mlsb", MLSB_TRAIN_FLAGS), ("dfmdock", DFMDOCK_TRAIN_FLAGS)):
+        label = f"train {lineage} --no-pool"
+        argv = (with_flag(with_flag(flags, "--epochs", NO_POOL_EPOCHS), "--log-every", 1)
+                + ["--no-pool", "--ckpt-dir", os.path.join(out_root, f"no_pool_{lineage}"),
+                   "--device", device.type])
+        out, wall, launches = run_path(label, ("select_topk",), lambda: train.main(argv),
+                                       absent=TRAIN_ABSENT)
+        steps, g = out["steps"], out["graph"]
+        if (g["captures"], g["replays"]) != (0, 0):
+            raise AssertionError(f"{label}: {g['captures']} captures and {g['replays']} "
+                                 "replays, expected none (the eager path)")
+        if launches["select_topk"] != NO_POOL_SELECTS[lineage] * steps:
+            raise AssertionError(f"{label}: {launches['select_topk']} select_topk launches in "
+                                 f"{steps} steps, expected {NO_POOL_SELECTS[lineage]} a step")
+        for r in out["rows"]:
+            if not all(np.isfinite(v) for k, v in r.items() if k != "t"):
+                raise AssertionError(f"{label}: non-finite losses at step {r['step']}")
+        log(f"# {label} ({' '.join(argv[:-4])}): {steps} eager steps, CLI wall {wall:.3f} s, "
+            f"training loop {out['wall']:.3f} s ({steps / out['wall']:.3f} steps/s); card "
+            f"{CARD[0]}")
+        args = train.parse_args(argv)
+        cfg = train.experiment_config(args)
+        row = first_no_pool_row(args)
+        net = load_model(None, cfg, device, seed=args.seed, lineage=lineage)
+        weights = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+        r3, so3 = R3Diffuser(cfg.diffuser.r3), SO3Diffuser(cfg.diffuser.so3)
+        again = train_step(net, r3, so3, cfg.experiment, make_optimizer(net, cfg.experiment),
+                           train.LOSSES[lineage], [upload(row, device)],
+                           torch.Generator(device).manual_seed(args.seed + 1))
+        logged = out["rows"][0]
+        off = {k: (float(v), logged[k]) for k, v in again.items()
+               if abs(float(v) - logged[k]) > TRAIN_LOSS_REL * abs(logged[k]) + NO_POOL_LOG_ABS}
+        if off:
+            raise AssertionError(f"{label}: its first step made again differs from the CLI's "
+                                 f"logged one: {off}")
+        log(f"# {label}: its first step made again on the card gives the CLI's logged losses "
+            "(" + " ".join(f"{k} {logged[k]}" for k in again if k.endswith("loss")) + ")")
+        train_step_parity(f"{lineage} --no-pool", lineage, flags, weights, device,
+                          row=(row, step_row(flags, device)[1]))
 
 
 def with_flag(flags, name, value):
@@ -2676,7 +2753,8 @@ def bounds(inputs):
 
 
 def train_phases(out_root, device):
-    """9g, 9h and 9m: training of both lineages, at float32 then bfloat16.
+    """9g, 9h and 9m: training of both lineages, at float32 then bfloat16;
+    then 9n, the --no-pool path.
     Returns ({lineage: CLI steps/s}, {lineage: bf16 windows})."""
     train_rates, bf16_windows = {}, {}
     for lineage, flags, record in (("mlsb", MLSB_TRAIN_FLAGS, DEMO_METRICS),
@@ -2689,6 +2767,9 @@ def train_phases(out_root, device):
         bf16_windows[lineage] = bf16_train_phase(out_root, lineage, flags, weights,
                                                  train_rates[lineage], window, device)
         log(f"# training {lineage} at bf16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    no_pool_phase(out_root, device)
+    log(f"# training --no-pool: {time.perf_counter() - t0:.1f} s")
     return train_rates, bf16_windows
 
 

@@ -43,7 +43,12 @@ beside the record (eval_train.csv, made on a TPU v5e).  `--summarize DIR`
 reads the per-pose CSVs of earlier runs (`--out-dir DIR`) and prints each
 side and seed over all the complexes it covers, then for every two sides
 that share seeds the per-seed mean DockQ and pick mean of both and their
-paired difference with its standard error.  Imports JAX; it is
+paired difference with its standard error; with `--spread TAG,...` (port
+runs of one training protocol, swept as `--sides port-cuda --tag TAG`) and
+several DIRs (the training and held-out sweeps) it also prints each run's
+mean DockQ and pick mean on each set, their mean m and sample sd s over
+the runs, and how many s the JAX-trained model (tag `jax`) lies from m
+(ROADMAP F7's rule: inside if within m +- 2s).  Imports JAX; it is
 not part of the port.  A 40-pose sweep of 4POU takes minutes per side.
 """
 from __future__ import annotations
@@ -286,13 +291,83 @@ def rank_corr(g):
     return np.corrcoef(r[:, 0], r[:, 1])[0, 1]
 
 
-def summarize(out_dir):
+def read_runs(out_dirs):
+    """{side: {seed: {complex id: [poses, 2] (DockQ, energy)}}} of the
+    per-pose CSVs that --out-dir wrote into each of `out_dirs`."""
     runs = {}
-    for name in sorted(os.listdir(out_dir)):
-        side, seed = re.fullmatch(r"(.+)_seed(\d+)_[\w-]+\.csv", name).groups()
-        with open(os.path.join(out_dir, name)) as f:
-            runs.setdefault(side, {}).setdefault(int(seed), {}).update(
-                groups_of(csv.DictReader(f)))
+    for out_dir in out_dirs:
+        for name in sorted(os.listdir(out_dir)):
+            side, seed = re.fullmatch(r"(.+)_seed(\d+)_[\w-]+\.csv", name).groups()
+            with open(os.path.join(out_dir, name)) as f:
+                runs.setdefault(side, {}).setdefault(int(seed), {}).update(
+                    groups_of(csv.DictReader(f)))
+    return runs
+
+
+def side_numbers(by_seed, ids):
+    """(mean DockQ, pick mean, seeds) of one side over the complexes `ids`:
+    each the mean over the seeds that cover all of them."""
+    seeds = [sd for sd, g in sorted(by_seed.items()) if set(ids) <= set(g)]
+    per = np.array([overall({k: by_seed[sd][k] for k in ids})[:3] for sd in seeds])
+    return (per[:, 0].mean(), per[:, 2].mean(), seeds) if seeds else None
+
+
+SPREAD_SETS = {"training": RECORD_ORDER, "held-out": HOLDOUT_ORDER}
+
+
+def spread(runs, tags, reference, prefix="port-cuda@"):
+    """How far port-trained models of one protocol scatter, and where the
+    reference model lies among them (ROADMAP F7).  `runs` as read_runs;
+    `tags`: the runs whose spread is measured, as SIDE@TAG sides named
+    `prefix` + tag; `reference`: the tag of the model held against it.  For
+    each set of SPREAD_SETS, each tag's (and every other `prefix` side's)
+    mean DockQ and pick mean over its seeds; over the `tags` present, the
+    mean m and sample sd s of both numbers; the reference's distance from m
+    in s, and whether it lies within m +- 2s.  Prints it and returns
+    {set: {"runs": {tag: (mean, pick, seeds)}, "m": (mean, pick), "s": (mean,
+    pick), "reference": (mean, pick), "z": (mean, pick), "inside": bool}}."""
+    out = {}
+    others = sorted(side[len(prefix):] for side in runs if side.startswith(prefix))
+    for name, ids in SPREAD_SETS.items():
+        nums = {t: side_numbers(runs[prefix + t], ids) for t in others}
+        nums = {t: v for t, v in nums.items() if v is not None}
+        for t, (mean, pick, seeds) in nums.items():
+            role = ("reference" if t == reference else "in the spread" if t in tags
+                    else "beside it")
+            print(f"# spread, {name} set: {prefix}{t} ({role}): mean {mean:.4f}, pick mean "
+                  f"{pick:.4f} over seeds {seeds[0]}-{seeds[-1]} ({len(seeds)})")
+        counted = [t for t in tags if t in nums]
+        if len(counted) < 2 or reference not in nums:
+            print(f"# spread, {name} set: {len(counted)} of the runs and "
+                  f"{'the' if reference in nums else 'no'} reference: nothing to compare")
+            continue
+        vals = np.array([nums[t][:2] for t in counted])
+        m, s = vals.mean(0), vals.std(0, ddof=1)
+        ref = np.array(nums[reference][:2])
+        z = (ref - m) / s
+        inside = bool(np.all(np.abs(ref - m) <= 2 * s))
+        out[name] = {"runs": {t: nums[t] for t in counted}, "m": tuple(m), "s": tuple(s),
+                     "reference": tuple(ref), "z": tuple(z), "inside": inside}
+        print(f"# spread, {name} set, over {len(counted)} runs ({', '.join(counted)}): mean "
+              f"DockQ m {m[0]:.4f} s {s[0]:.4f}, pick mean m {m[1]:.4f} s {s[1]:.4f}; "
+              f"{prefix}{reference}: mean {ref[0]:.4f} ({z[0]:+.2f} s), pick mean {ref[1]:.4f} "
+              f"({z[1]:+.2f} s): {'inside' if inside else 'outside'} m +- 2s")
+    return out
+
+
+def summarize(out_dirs, tags=()):
+    """For each of `out_dirs`, each side and seed over the complexes it
+    covers and every paired difference; then with `tags` the spread of
+    those runs over all the directories, against the JAX-trained weights
+    (spread)."""
+    for out_dir in out_dirs:
+        summarize_dir(read_runs([out_dir]))
+    if tags:
+        spread(read_runs(out_dirs), tags, "jax")
+    return 0
+
+
+def summarize_dir(runs):
     line = "mean {:.4f}, best mean {:.4f}, pick mean {:.4f}, acceptable+ picks {}"
     for side, by_seed in sorted(runs.items()):
         for ids in sorted({tuple(sorted(g)) for g in by_seed.values()}):
@@ -314,7 +389,6 @@ def summarize(out_dir):
     for i, a in enumerate(names):
         for b in names[i + 1:]:
             paired(a, runs[a], b, runs[b])
-    return 0
 
 
 def paired(side_a, by_seed_a, side_b, by_seed_b):
@@ -355,13 +429,17 @@ def main(argv=None):
                          "pairs runs of other weights")
     ap.add_argument("--out-dir", default=None,
                     help="write each run's per-pose DockQ and energy here as CSV")
-    ap.add_argument("--summarize", default=None, metavar="DIR",
-                    help="run nothing: read the CSVs that --out-dir wrote into DIR (runs "
-                         "of one side and seed may be split over several calls) and "
+    ap.add_argument("--summarize", default=None, nargs="+", metavar="DIR",
+                    help="run nothing: read the CSVs that --out-dir wrote into each DIR "
+                         "(runs of one side and seed may be split over several calls) and "
                          "print each side and seed over the complexes it covers")
+    ap.add_argument("--spread", default="", metavar="TAG,...",
+                    help="with --summarize: the port-cuda@TAG runs whose spread is "
+                         "measured (training and held-out mean and pick, their mean m and "
+                         "sd s) and where the JAX-trained weights (tag jax) lie from m, in s")
     args = ap.parse_args(argv)
     if args.summarize:
-        return summarize(args.summarize)
+        return summarize(args.summarize, [t for t in args.spread.split(",") if t])
     ids = [s for s in args.ids.split(",") if s]
     sides = args.sides.split(",")
     port_only = all(s in PORT_ROUTES for s in sides)

@@ -68,7 +68,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      poses and the min-energy-pick mean each at least the record's less its
      bootstrap margin (quality_gate); then the same sweep on the bf16 route
      under the same gate (the record is itself a JAX bf16 run), its
-     launches equal to the float32 sweep's mode for mode;
+     launches equal to the float32 sweep's mode for mode; then the port's
+     own db5_demo weights (ckpts/db5_demo_torch, the record's 2000 epochs
+     trained by the training CLI on the card) through the same bf16 sweep,
+     beside the JAX-trained weights' at seed 5 with the difference, under
+     the same gate (the run was found reproduced: its README), its
+     launches equal to the JAX-trained sweep's mode for mode;
   9c. the DFMDock lineage: the sweep --lineage dfmdock with its trained
      weights (40 poses, seed 5) over the four complexes it was trained on,
      gated against eval_train.csv, and over the four held out, beside
@@ -369,6 +374,8 @@ SWEEP_IDS = ("1AVX", "7CEI")
 # package's per-pose records of the same sweeps on v5e.
 DEMO_NPZ = os.path.join("ckpts", "db5_demo", "weights.npz")
 DEMO_RECORD = os.path.join("ckpts", "db5_demo", "eval_all.csv")
+# db5_demo's protocol trained by the port (ckpts/db5_demo_torch/README.md)
+DEMO_TORCH_NPZ = os.path.join("ckpts", "db5_demo_torch", "weights.npz")
 DFMDOCK_NPZ = os.path.join("ckpts", "db5_holdout_dfmdock", "weights.npz")
 DFMDOCK_TRAIN = ("1AVX", "1ZHI", "2SNI", "4POU")
 DFMDOCK_HOLDOUT = ("1QA9", "7CEI", "2SIC", "1JPS")
@@ -1423,7 +1430,32 @@ def bf16_trained_phase(out_root, f32_launches):
     if launches != want:
         raise AssertionError(f"trained sweep bf16: launches {launches}, the float32 route's "
                              f"{f32_launches}")
-    quality_gate("trained mlsb sweep bf16", rows, DEMO_RECORD, set(r["id"] for r in rows))
+    stats = quality_gate("trained mlsb sweep bf16", rows, DEMO_RECORD,
+                         set(r["id"] for r in rows))
+    return stats, launches
+
+
+def demo_torch_phase(out_root, jax_stats, jax_launches):
+    """The port's own db5_demo weights (ckpts/db5_demo_torch, 2000 epochs
+    trained by the training CLI on the card) through the same sweep as
+    bf16_trained_phase (default route, 24 complexes x 16 poses, seed 5),
+    beside the JAX-trained weights' sweep there, gated by quality_gate
+    against eval_all.csv as theirs is (the README's rule found the run
+    reproduced over sweep seeds 5-14); its launches equal the
+    JAX-trained sweep's, mode for mode."""
+    out_csv = os.path.join(out_root, "demo_torch_sweep.csv")
+    rows, wall, launches = run_path("port-trained sweep", DOCK_KERNELS_BF16, lambda: sweep.main(
+        ["--ckpt", DEMO_TORCH_NPZ, "--num-samples", str(P), "--seed", "5", "--out-csv",
+         out_csv]), BF16_ABSENT)
+    log(f"# port-trained sweep ({DEMO_TORCH_NPZ}): {len(rows)} rows, wall {wall:.3f} s")
+    if launches != jax_launches:
+        raise AssertionError(f"port-trained sweep: launches {launches}, the JAX-trained "
+                             f"sweep's {jax_launches}")
+    stats = quality_gate("port-trained mlsb sweep", rows, DEMO_RECORD,
+                         set(r["id"] for r in rows))
+    log("# seed 5, JAX-trained minus port-trained: " + ", ".join(
+        f"{k} {jax_stats[k] - stats[k]:+.4f} ({jax_stats[k]:.4f} - {stats[k]:.4f})"
+        for k in ("mean_all", "best_mean", "pick_mean", "acceptable")))
 
 
 def dfmdock_parity_phase(raw, device, mcfg=FAST_F32, ref_cfg=None):
@@ -2823,8 +2855,11 @@ def main():
         trained_launches = trained_phase(out_root)
         log(f"# trained mlsb dock and sweep: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        bf16_trained_phase(out_root, trained_launches)
+        demo_stats, demo_launches = bf16_trained_phase(out_root, trained_launches)
         log(f"# trained mlsb sweep bf16: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        demo_torch_phase(out_root, demo_stats, demo_launches)
+        log(f"# port-trained mlsb sweep: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         dfmdock_sweep_phase(out_root)
         profile_phase(raw, device, lineage="dfmdock", ckpt=DFMDOCK_NPZ)

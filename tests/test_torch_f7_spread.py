@@ -1,10 +1,13 @@
-"""ROADMAP F7's tools on the CPU: the spread summary of
+"""ROADMAP F7's and db5_demo's reproduction tools on the CPU: the spread summary of
 scripts/dfmdock_witness.py (`--summarize DIR... --spread TAG,...`) on
-synthetic per-seed sweep rows, and the training arguments of
-scripts/f7_runs.py against the protocol of
-ckpts/db5_holdout_dfmdock_torch/README.md.
+synthetic per-seed sweep rows, the training arguments of
+scripts/f7_runs.py against the protocols of
+ckpts/db5_holdout_dfmdock_torch/README.md and ckpts/db5_demo/README.md, and
+the db5_demo summary's paired difference and verdict on synthetic 24-complex
+sweeps.
 """
 import os
+import shlex
 import sys
 
 import numpy as np
@@ -132,3 +135,93 @@ def test_f7_runs_parse_runs():
     assert f7_runs.run_tag(1, "bfloat16") == "seed1-bf16"
     with pytest.raises(ValueError):
         f7_runs.parse_runs("1:float16")
+
+
+DEMO_README = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "ckpts", "db5_demo", "README.md")
+
+
+def demo_record_args():
+    """The training CLI's arguments of the record's command in
+    ckpts/db5_demo/README.md."""
+    with open(DEMO_README) as f:
+        text = f.read().replace("\\\n", " ")
+    line, = (ln for ln in text.splitlines() if "dfmdock_tpu.cli.train" in ln)
+    return train.parse_args(shlex.split(line.split("dfmdock_tpu.cli.train", 1)[1]))
+
+
+def test_db5_demo_trains_at_the_record_command():
+    """Two halves of 1000 epochs at the record's flags and seed, every 500
+    epochs saved, the second resumed from the first's epoch999 weights
+    with the epochs already trained as the save offset."""
+    rec = demo_record_args()
+    assert (rec.epochs, rec.seed, rec.crop_size) == (2000, 41, 448)
+    halves = [train.parse_args(f7_runs.half_argv(41, "float32", 1000, h, "OUT", "W", "cuda",
+                                                 "db5_demo")) for h in (1, 2)]
+    keep = ("data_dir", "lineage", "crop_size", "lr", "grad_energy", "use_contrastive_loss",
+            "use_confidence_loss", "use_dist_loss", "no_interface_loss", "compute_dtype",
+            "exclude_ids", "batch_size", "no_pool", "pool_variants", "pool_refresh",
+            "weight_decay", "contrastive_weight", "contrastive_margin", "contrastive_t_max",
+            "contrastive_negatives", "contrastive_clash_negatives", "seed")
+    for h, args in enumerate(halves, 1):
+        assert {k: getattr(args, k) for k in keep} == {k: getattr(rec, k) for k in keep}
+        assert (args.epochs, args.log_every, args.save_every) == (1000, 400, 500)
+        assert args.ckpt_dir == os.path.join("W", "seed41", f"half{h}")
+        assert args.metrics_json == os.path.join("OUT", "seed41", f"metrics_half{h}.jsonl")
+        assert train.experiment_config(args) == train.experiment_config(rec)
+    assert sum(a.epochs for a in halves) == rec.epochs
+    first, second = halves
+    assert first.resume is None and first.save_offset == 0
+    assert second.resume == os.path.join("ckpts", "db5_demo_torch", "epoch999", "weights.npz")
+    assert second.save_offset == 1000
+    assert f7_runs.parse_runs(f7_runs.PROTOCOLS["db5_demo"].runs) == [(41, "float32")]
+    # F7's protocol stays the default
+    assert f7_runs.half_argv(3, "float32", 400, 1, "O", "W", "cuda") == f7_runs.half_argv(
+        3, "float32", 400, 1, "O", "W", "cuda", "dfmdock_holdout")
+    assert "--save-every" not in f7_runs.half_argv(3, "float32", 400, 2, "O", "W", "cuda")
+
+
+DEMO_IDS = [f"C{k:02d}" for k in range(24)]
+DEMO_SEEDS = (5, 6, 7)
+
+
+def write_demo_sweeps(root, levels):
+    """Sweep CSVs as the sweep CLI writes them, TAG_seedN.csv, 24 complexes
+    x 3 poses: DockQ level + 0.02 seed^2 + offsets, the lowest energy on
+    the second pose."""
+    for tag, level in levels.items():
+        for seed in DEMO_SEEDS:
+            with open(os.path.join(root, f"{tag}_seed{seed}.csv"), "w") as f:
+                f.write("id,DockQ,energy,index\n")
+                for cid in DEMO_IDS:
+                    base = level(seed) + 0.002 * int(cid[1:])
+                    f.writelines(f"{cid},{d!r},{e!r},{i}\n" for i, (d, e) in enumerate(
+                        [(base, 1.0), (base + 0.3, -2.0), (base - 0.1, 0.0)]))
+
+
+@pytest.mark.parametrize("gap, reproduced", [(0.01, True), (0.2, False)])
+def test_db5_demo_summary(tmp_path, capsys, gap, reproduced):
+    """The paired difference jax - torch over the seeds, its standard
+    error, and the verdict against eval_all.csv's bootstrap margins."""
+    levels = {"jax": lambda s: 0.3 + 0.02 * s * s / 25,
+              "torch": lambda s: 0.3 - gap + 0.01 * s}
+    write_demo_sweeps(str(tmp_path), levels)
+    out = f7_runs.demo_summary(str(tmp_path))
+    base = np.mean([0.002 * k for k in range(24)])
+    # per seed: the mean over poses is base + 0.2 / 3 above the level, the
+    # pick base + 0.3, and a pick is acceptable+ where its DockQ >= 0.23
+    per = {tag: np.array([(lv(s) + base + 0.2 / 3, lv(s) + base + 0.3,
+                           sum(lv(s) + 0.002 * k + 0.3 >= 0.23 for k in range(24)))
+                          for s in DEMO_SEEDS]) for tag, lv in levels.items()}
+    d = per["jax"] - per["torch"]
+    assert out["seeds"] == list(DEMO_SEEDS)
+    assert out["torch"] == pytest.approx(per["torch"].mean(0).tolist(), abs=1e-12)
+    assert out["jax"] == pytest.approx(per["jax"].mean(0).tolist(), abs=1e-12)
+    assert out["diff"] == pytest.approx(d.mean(0).tolist(), abs=1e-12)
+    assert out["se"] == pytest.approx((d.std(0, ddof=1) / np.sqrt(3)).tolist(), abs=1e-12)
+    assert out["margin"] == pytest.approx([0.0512, 0.1282], abs=1e-4)
+    assert out["reproduced"] is reproduced
+    printed = capsys.readouterr().out
+    assert ("# verdict: reproduced" in printed) is reproduced
+    assert ("F8 opens" in printed) is not reproduced
+    assert f7_runs.main(["--protocol", "db5_demo", "--summarize", str(tmp_path)]) == 0

@@ -1,6 +1,7 @@
 """Drive dfmdock_tpu_torch's main paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only scaling,heun   # phases 1, 2, 10b and 10c alone
 
 The kernel route has two precisions: fast() computes in bf16, as the JAX
 package's (fused_egcl in its single-pass bf16 mode, counted apart as
@@ -146,7 +147,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
      has one route (select_topk, ties to the lower index), so each select
      route's trajectory must equal its precision's fast() bit for bit (a
      gate); where the bins route's and the bf16 route's leave fast(f32)'s
-     is reported.
+     is reported;
+ 10b. scaling: the ScoreNet at bench.py's other pose counts, P in {40, 64,
+     120} (1AVX at N = 448, seeded weights): on the float32 and the bf16
+     route one forward of random poses on injected edges against the
+     route's plain path on the card (the kernels' plain versions, in blocks
+     of 40 poses; phase 4's tolerances, and where an output lies beyond its
+     precision's bound, 4b's rule: within 2x the distance that precision
+     sets itself, the float32 plain path's from its float64 evaluation, the
+     eager bf16 route's from float32, on the card), and a 40-step sample,
+     finite, with the P = 16 sample's launches a forward (six fused_egcl,
+     one of them coord, one edge_table, one select_topk; one fused_energy
+     in the final forward), its steps/s, device busy time and peak memory;
+     at P = 120 every kernel against its plain version at the kernel
+     checks' bounds;
+ 10c. Heun (--integrator heun, the probability-flow ODE with a corrector
+     forward a step): 40-step samples of 16 poses on fast(f32), fast()
+     and their select routes, each with 2 x 40 + 1 forwards' launches and
+     each select route bit-equal to its fast(); 4 Heun steps with the clash
+     force and knn-only edges from one start pose, the card's float32
+     route against the CPU's plain path (every frame, the pose and the
+     scores within F32_PARITY_REL; the energy and tr_update printed); the
+     dock CLI with --integrator heun.
 Phases 9i-9l run last, after the kernel table's timings (below).
 The kernel table after phase 10 gives each kernel's time by CUDA events,
 its device time (torch.profiler, from a trace that recorded every kernel a
@@ -157,7 +179,8 @@ kernel-side form built once, B as bf16 in the bf16 mode).  A failing
 card-vs-CPU training step (9g, 9h, 9m) is kept under
 chiprun_out/train_step_failures/ and replayed in float64 before the run
 fails.
-Each main path (phases 5, 8, 9, 9b-9e, 9g-9k, 9m, 9n and the routes of 10) runs with the
+Each main path (phases 5, 8, 9, 9b-9e, 9g-9k, 9m, 9n, the routes of 10, the samples
+of 10b and the samples and dock of 10c) runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
 path that did not launch (or one that must not run and did: the other
 precision's fused_egcl mode, and on the DFMDock lineage the coord and
@@ -165,11 +188,15 @@ energy kernels) fails the run.  The kernel line's fused_egcl_bf16 rows
 take their launches from the dock CLI's default (bf16) run, the float32
 rows from the float32 dock.  The last line is {"ok": true,
 "device": {...}}; the line before it lists the kernels.  Without a CUDA card
-the script exits non-zero and prints no result.
+the script exits non-zero and prints no result.  `--only PHASES` runs the
+device and build phases and then only the named ones (scaling, heun), and
+prints neither the kernel line nor a result line.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
+import copy
 import csv
 import dataclasses
 import functools
@@ -194,7 +221,7 @@ import dfmdock_tpu_torch.models.egnn as egnn_mod
 import dfmdock_tpu_torch.models.score_net as score_net_mod
 from dfmdock_tpu_torch.cli import dock, sweep, train
 from dfmdock_tpu_torch.cli.common import build_sampler, load_model
-from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
+from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, R3Config, SamplerConfig, SO3Config
 from dfmdock_tpu_torch.data.batching import pad_complex, round_up
 from dfmdock_tpu_torch.data.convert import load_npz_complex
 from dfmdock_tpu_torch.data.dataset import NPZDataset, batch_to_tensors, complex_to_batch
@@ -242,7 +269,7 @@ from dfmdock_tpu_torch.ops.select_topk import NEG_INF, select_topk, select_topk_
 from dfmdock_tpu_torch.parallel import init_world
 from dfmdock_tpu_torch.parallel.dryrun import entry
 from dfmdock_tpu_torch.parallel.mesh import make_dp_train_step
-from dfmdock_tpu_torch.sampler import PicardSampler
+from dfmdock_tpu_torch.sampler import EMSampler, PicardSampler
 from dfmdock_tpu_torch.sampler.em import modify_coords, randomize_pose, step_schedule
 from dfmdock_tpu_torch.train.pool import PoolStep, make_training_batch, train_step, upload
 from dfmdock_tpu_torch.train.trainer import make_optimizer
@@ -369,6 +396,28 @@ ROUTE_KERNELS = {
     "select bf16": DOCK_KERNELS_BF16,
 }
 RERANK_T, RERANK_DRAWS, ENERGY_DRAWS = 5, 4, 4
+# The scaling phase (10b): bench.py's POSE_COUNTS (16, 40, 64, 120) less the
+# 16 of phases 5-10, one forward a route at SCALING_T against the route's
+# plain path on the card, which runs in blocks of SCALING_PLAIN_BLOCK poses
+# (the poses of a forward do not interact; the plain EGCL layer's [poses,
+# N, K, C] float32 edge tensors are 3.3 GB each at P = 120)
+SCALING_POSES = (40, 64, 120)
+SCALING_T = 0.5
+SCALING_PLAIN_BLOCK = 40
+# Heun (phase 10c): the trajectory gate of tests/test_torch_ranking.py's
+# test_heun_trajectory_matches_jax at full width on 1AVX: HEUN_PARITY_STEPS
+# steps of the probability-flow ODE with the clash force, knn-only edges, R3
+# max_sigma cut to 1 A, from 1AVX's native pose with the ligand moved by
+# HEUN_SHIFT (tr_update HEUN_SHIFT, rot_update HEUN_ROT)
+HEUN_PARITY_STEPS = 4
+HEUN_SHIFT, HEUN_ROT = (4.0, -3.0, 2.0), (0.2, 0.1, -0.3)
+# Gated: every frame, the final pose and the final forward's scores; the
+# final energy and tr_update are printed beside them.  At random weights
+# the energy of one pose is a mean over few pairs (~1e-2): the ~1e-2 A by
+# which float32 rounding moves the pose (rot_score's floor: scaling_parity
+# says why) moves it by ~4e-3 of itself
+HEUN_GATED = ("pos", "tr_score", "rot_score")
+HEUN_REPORTED = ("tr_update", "energy")
 SWEEP_IDS = ("1AVX", "7CEI")
 # The trained weights (scripts/export_torch_weights.py) and the JAX
 # package's per-pose records of the same sweeps on v5e.
@@ -595,6 +644,34 @@ def run_path(name, kernels, fn, absent=(), graphs=False):
     return result, wall, launches
 
 
+def sample_forwards(steps, integrator="em"):
+    """The ScoreNet forwards of one sample: one a step (two with Heun's
+    corrector) and the final full forward."""
+    return steps * (2 if integrator == "heun" else 1) + 1
+
+
+def expected_launches(forwards, bf16=False, depth=ModelConfig().depth):
+    """Each kernel's launches over `forwards` forwards of the mlsb ScoreNet
+    on a kernel route, whatever the pose count (every kernel covers all the
+    poses of a forward in one launch): a forward's depth - 1 agg-only
+    fused_egcl layers and its coord layer (in the bf16 mode on the bf16
+    route), one edge table and one select_topk; one fused_energy (a
+    sample's final forward)."""
+    agg, coord = (("fused_egcl_bf16", "fused_egcl_coord_bf16") if bf16
+                  else ("fused_egcl", "fused_egcl_coord"))
+    out = dict.fromkeys(launch_counts(), 0)
+    out.update({"edge_table": forwards, "select_topk": forwards, agg: (depth - 1) * forwards,
+                coord: forwards, "fused_energy": 1})
+    return out
+
+
+def check_launches(label, got, want):
+    """Fail unless a run's launch counts are exactly `want`'s."""
+    if dict(got) != want:
+        raise AssertionError(f"{label}: launches {json.dumps(dict(got))}, expected "
+                             f"{json.dumps(want)}")
+
+
 CARD = ["card not read"]  # the card's name and power limit, as nvidia-smi gives them
 
 
@@ -710,85 +787,96 @@ def kernel_phase(raw, device):
     cases.append((2, 64, 3, small))
     main_inputs = None
     for num_poses, n_pad, seed, cx in cases:
-        batch, pos, idx, edge_mask = edge_inputs(cx or raw, n_pad, num_poses, seed, device)
-        args = (idx, pos, batch["res_id"], batch["asym_id"])
-        ebin_k, egeo_k = build_edge_table(*args, normalize=True)
-        ebin_p, egeo_p = build_edge_table_plain(*args, normalize=True)
-        ebin_b = edge_bins(*args)
-        torch.cuda.synchronize()
-        valid = edge_mask > 0.5
-        ties, masked = check_bins(ebin_k, ebin_p, pos, idx, valid)
-        if not torch.isfinite(egeo_k).all():
-            raise AssertionError("edge_table wrote non-finite geometry")
-        abs_g, rel_g, _ = max_errs(egeo_k[valid], egeo_p[valid])
-        if rel_g > F32_REL:
-            raise AssertionError(f"edge_table geometry rel err {rel_g:.3e}")
-        errs["edge_table"] = max(errs["edge_table"], abs_g)
-        log(f"# edge_table P={num_poses} N={n_pad} seed={seed}: valid edges "
-            f"{int(valid.sum())}/{valid.numel()}, bin ties {ties}, masked-edge bin "
-            f"diffs {masked}, geometry max abs {abs_g:.3e} rel {rel_g:.3e}")
-        # bins-only mode: the same bits as the table's bins on every edge,
-        # and the plain version's except at boundary ties
-        errs["edge_bins"] = max(errs["edge_bins"],
-                                float((ebin_b - ebin_k).abs().max()))
-        if not torch.equal(ebin_b, ebin_k):
-            raise AssertionError(f"edge_bins differs from build_edge_table's ebin on "
-                                 f"{int((ebin_b != ebin_k).sum())} entries")
-        ties_b, masked_b = check_bins(ebin_b, ebin_p, pos, idx, valid)
-        log(f"# edge_bins P={num_poses} N={n_pad} seed={seed}: equal to the table's "
-            f"ebin; against plain: bin ties {ties_b}, masked-edge bin diffs {masked_b}")
-
-        # edge selection on these poses with a fresh Gumbel draw: exact
-        dist = pairwise_ca_dist(pos)
-        y = select_y(dist, batch["node_mask"], sample_gumbel(
-            dist.shape, torch.Generator(device).manual_seed(100 + seed), device))
-        sel_cases = [("", dist, y)]
-        if cx is None and seed == 0:  # distances rounded to 4 A: ties
-            tied = torch.round(dist / 4.0) * 4.0
-            sel_cases.append((" ties", tied, select_y(tied, batch["node_mask"], 0.0 * y)))
-        for tag, d, yy in sel_cases:
-            check_select(errs, f"{tag} P={num_poses} N={n_pad} seed={seed}", d, yy,
-                         batch["node_mask"])
-        check_energy(errs, f"P={num_poses} N={n_pad} seed={seed}",
-                     energy_inputs(batch, pos, 256, seed, device))
-
-        egeo_l = egeo_k
-        if cx is not None:  # masked edges' geometry poisoned: selection, not * 0
-            egeo_l = egeo_k.clone()
-            egeo_l[~valid] = float("nan")
-        layer_args, coord = fused_inputs(idx, edge_mask, ebin_k, egeo_l, 256, seed, device)
-        agg_k = kernel_layer(layer_args)
-        agg_c, trans_k = kernel_layer(layer_args, coord)
-        agg_k2 = kernel_layer(layer_args)
-        agg_c2, trans_k2 = kernel_layer(layer_args, coord)
-        agg_p = fused_edge_layer_plain(*layer_args)
-        agg_cp, trans_p = fused_edge_layer_plain(*layer_args, coord)
-        torch.cuda.synchronize()
-        if not (torch.equal(agg_k, agg_k2) and torch.equal(agg_c, agg_c2)
-                and torch.equal(trans_k, trans_k2)):
-            raise AssertionError("fused_egcl: two launches on the same inputs differ")
-        for name, out, ref in (("fused_egcl agg", agg_k, agg_p),
-                               ("fused_egcl_coord agg", agg_c, agg_cp),
-                               ("fused_egcl_coord trans", trans_k, trans_p)):
-            if not torch.isfinite(out).all():
-                raise AssertionError(f"{name}: non-finite output")
-            a_err, r_err, _ = max_errs(out, ref)
-            if r_err > F32_REL:
-                raise AssertionError(f"{name}: rel err {r_err:.3e} > {F32_REL}")
-            key = name.split()[0]
-            errs[key] = max(errs[key], a_err)
-            log(f"# {name} P={num_poses} N={n_pad} seed={seed}"
-                f"{' (masked geometry NaN)' if cx is not None else ''}: max abs "
-                f"{a_err:.3e} rel {r_err:.3e}, two launches bit-equal")
-        check_egcl_bf16(errs, f"P={num_poses} N={n_pad} seed={seed}"
-                        f"{' (masked geometry NaN)' if cx is not None else ''}",
-                        layer_args, coord)
+        case_inputs = kernel_case(raw, device, errs, num_poses, n_pad, seed, cx)
         if main_inputs is None:
-            main_inputs = {"table": args, "layer": layer_args, "coord": coord,
-                           "select": (dist, y, batch["node_mask"])}
+            main_inputs = case_inputs
     select_cases(raw, device, errs)
     energy_cases(raw, device, errs)
     return errs, main_inputs
+
+
+def kernel_case(raw, device, errs, num_poses, n_pad, seed, cx=None):
+    """One case of the kernel checks: num_poses random poses of `cx` (else
+    1AVX) padded to n_pad, their edges from the port's own selection; the
+    edge table and its bins-only mode, select_topk (with a forced-tie case
+    at seed 0 of 1AVX), fused_energy and both fused_egcl modes, each against
+    its plain version, their largest errors into `errs`.  Returns the
+    case's inputs (the edge table's, the layer's, the selection's)."""
+    batch, pos, idx, edge_mask = edge_inputs(cx or raw, n_pad, num_poses, seed, device)
+    args = (idx, pos, batch["res_id"], batch["asym_id"])
+    ebin_k, egeo_k = build_edge_table(*args, normalize=True)
+    ebin_p, egeo_p = build_edge_table_plain(*args, normalize=True)
+    ebin_b = edge_bins(*args)
+    torch.cuda.synchronize()
+    valid = edge_mask > 0.5
+    ties, masked = check_bins(ebin_k, ebin_p, pos, idx, valid)
+    if not torch.isfinite(egeo_k).all():
+        raise AssertionError("edge_table wrote non-finite geometry")
+    abs_g, rel_g, _ = max_errs(egeo_k[valid], egeo_p[valid])
+    if rel_g > F32_REL:
+        raise AssertionError(f"edge_table geometry rel err {rel_g:.3e}")
+    errs["edge_table"] = max(errs["edge_table"], abs_g)
+    log(f"# edge_table P={num_poses} N={n_pad} seed={seed}: valid edges "
+        f"{int(valid.sum())}/{valid.numel()}, bin ties {ties}, masked-edge bin "
+        f"diffs {masked}, geometry max abs {abs_g:.3e} rel {rel_g:.3e}")
+    # bins-only mode: the same bits as the table's bins on every edge,
+    # and the plain version's except at boundary ties
+    errs["edge_bins"] = max(errs["edge_bins"],
+                            float((ebin_b - ebin_k).abs().max()))
+    if not torch.equal(ebin_b, ebin_k):
+        raise AssertionError(f"edge_bins differs from build_edge_table's ebin on "
+                             f"{int((ebin_b != ebin_k).sum())} entries")
+    ties_b, masked_b = check_bins(ebin_b, ebin_p, pos, idx, valid)
+    log(f"# edge_bins P={num_poses} N={n_pad} seed={seed}: equal to the table's "
+        f"ebin; against plain: bin ties {ties_b}, masked-edge bin diffs {masked_b}")
+
+    # edge selection on these poses with a fresh Gumbel draw: exact
+    dist = pairwise_ca_dist(pos)
+    y = select_y(dist, batch["node_mask"], sample_gumbel(
+        dist.shape, torch.Generator(device).manual_seed(100 + seed), device))
+    sel_cases = [("", dist, y)]
+    if cx is None and seed == 0:  # distances rounded to 4 A: ties
+        tied = torch.round(dist / 4.0) * 4.0
+        sel_cases.append((" ties", tied, select_y(tied, batch["node_mask"], 0.0 * y)))
+    for tag, d, yy in sel_cases:
+        check_select(errs, f"{tag} P={num_poses} N={n_pad} seed={seed}", d, yy,
+                     batch["node_mask"])
+    check_energy(errs, f"P={num_poses} N={n_pad} seed={seed}",
+                 energy_inputs(batch, pos, 256, seed, device))
+
+    egeo_l = egeo_k
+    if cx is not None:  # masked edges' geometry poisoned: selection, not * 0
+        egeo_l = egeo_k.clone()
+        egeo_l[~valid] = float("nan")
+    layer_args, coord = fused_inputs(idx, edge_mask, ebin_k, egeo_l, 256, seed, device)
+    agg_k = kernel_layer(layer_args)
+    agg_c, trans_k = kernel_layer(layer_args, coord)
+    agg_k2 = kernel_layer(layer_args)
+    agg_c2, trans_k2 = kernel_layer(layer_args, coord)
+    agg_p = fused_edge_layer_plain(*layer_args)
+    agg_cp, trans_p = fused_edge_layer_plain(*layer_args, coord)
+    torch.cuda.synchronize()
+    if not (torch.equal(agg_k, agg_k2) and torch.equal(agg_c, agg_c2)
+            and torch.equal(trans_k, trans_k2)):
+        raise AssertionError("fused_egcl: two launches on the same inputs differ")
+    for name, out, ref in (("fused_egcl agg", agg_k, agg_p),
+                           ("fused_egcl_coord agg", agg_c, agg_cp),
+                           ("fused_egcl_coord trans", trans_k, trans_p)):
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: non-finite output")
+        a_err, r_err, _ = max_errs(out, ref)
+        if r_err > F32_REL:
+            raise AssertionError(f"{name}: rel err {r_err:.3e} > {F32_REL}")
+        key = name.split()[0]
+        errs[key] = max(errs[key], a_err)
+        log(f"# {name} P={num_poses} N={n_pad} seed={seed}"
+            f"{' (masked geometry NaN)' if cx is not None else ''}: max abs "
+            f"{a_err:.3e} rel {r_err:.3e}, two launches bit-equal")
+    check_egcl_bf16(errs, f"P={num_poses} N={n_pad} seed={seed}"
+                    f"{' (masked geometry NaN)' if cx is not None else ''}",
+                    layer_args, coord)
+    return {"table": args, "layer": layer_args, "coord": coord,
+            "select": (dist, y, batch["node_mask"])}
 
 
 def kernel_layer(layer_args, coord=None, dtype=None):
@@ -1317,6 +1405,262 @@ def route_phase(raw, device, steps=STEPS):
             raise AssertionError(f"the {name} route's edges or trajectory differ from "
                                  f"{ref_name}'s")
     return launches
+
+
+def blocked_forward(net, batch, pos, t, edges, block=SCALING_PLAIN_BLOCK):
+    """`net`'s forward on injected `edges` in blocks of `block` poses, the
+    outputs concatenated (each has the pose axis first)."""
+    outs = []
+    with torch.no_grad():
+        for lo in range(0, pos.shape[0], block):
+            sl = slice(lo, lo + block)
+            outs.append(net(batch, pos[sl], t, edges=tuple(e[sl] for e in edges)))
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block the models call each kernel's plain version where
+    they call its wrapper (the weights' kernel-side form, `prepared`,
+    dropped): the kernel route's own arithmetic, launching no kernel, on
+    any device."""
+    def site(plain):
+        return lambda *args, prepared=None, **kwargs: plain(*args, **kwargs)
+
+    for _, module, attr, _, plain in KERNEL_SITES:
+        setattr(module, attr, site(plain))
+    try:
+        yield
+    finally:
+        for _, module, attr, fn, _ in KERNEL_SITES:
+            setattr(module, attr, fn)
+
+
+def scaling_parity(label, net, batch, pos, edges, f32, floor):
+    """One forward of all the poses through the kernels against the same
+    route's plain path on the card (plain_kernels, in pose blocks; no
+    kernel may launch), on the same injected edges.  Every output within
+    PARITY_TOL / PARITY_ABS (num_clashes exact) and, on the float32 route
+    (`f32`), within F32_PARITY_REL: phase 4's tolerances.  Where an output
+    lies beyond the bound of its route's precision (F32_PARITY_REL; on the
+    bf16 route PARITY_TOL / PARITY_ABS), it is held within
+    BF16_ROUTE_FACTOR times the distance that the precision itself sets on
+    the same case, as phase 4b holds the bf16 route: `floor(o_p)` returns
+    two forwards (lower, reference) whose distance that is.  Every
+    output's error is printed; a failing case diagnoses every kernel call
+    of its forward.  Returns the failing outputs."""
+    with torch.no_grad(), recording_kernels() as calls:
+        o_k = net(batch, pos, SCALING_T, edges=edges)
+        torch.cuda.synchronize()
+    reset_counts()
+    with plain_kernels():
+        o_p = blocked_forward(net, batch, pos, SCALING_T, edges)
+    errs = parity_errors(SCORE_NET_OUTPUTS, o_k, o_p, f32=False)
+    beyond = [name for name, (_, r_err, ok) in errs.items() if name != "num_clashes"
+              and (r_err > F32_PARITY_REL if f32 else not ok)]
+    route = {}
+    if beyond:
+        o_lo, o_ref = floor(o_p)
+        route = {name: max_errs(o_lo[name].cpu().double(), o_ref[name].cpu().double())[1]
+                 for name in beyond}
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        raise AssertionError(f"{label}: the plain paths launched {json.dumps(launch_counts())}")
+    bad = [name for name, (_, r_err, ok) in errs.items()
+           if (f32 and not ok) or (name in route and r_err > BF16_ROUTE_FACTOR * route[name])
+           or (name == "num_clashes" and not ok)]
+    for name, (a_err, r_err, _) in errs.items():
+        note = "FAIL" if name in bad and name not in route else "ok" if name not in route else (
+            f"(beyond {'F32_PARITY_REL' if f32 else 'PARITY_TOL'}; the precision's own distance "
+            f"{route[name]:.3e}: {'beyond' if name in bad else 'within'} {BF16_ROUTE_FACTOR}x)")
+        log(f"# parity {label} t={SCALING_T} {name}: max abs {a_err:.3e} rel {r_err:.3e} {note}")
+    if bad:
+        diagnose_kernels(calls)
+    return bad
+
+
+def precision_floors(net64, eager, batch, batch64, pos, edges):
+    """{route: floor} for scaling_parity: the distance each precision sets
+    on these poses, the float32 route's plain path (o_p) from its float64
+    evaluation (`net64`, the float32 route's net in float64, on `batch64`),
+    and the eager bf16 route from the eager float32 path (`eager`: those
+    two nets), each forward in pose blocks."""
+    def f32(o_p):
+        with plain_kernels():
+            return o_p, blocked_forward(net64, batch64, pos.double(), SCALING_T,
+                                        (edges[0], edges[1].double()))
+
+    def bf16(o_p):
+        o_f, o_e = (blocked_forward(n, batch, pos, SCALING_T, edges) for n in eager)
+        return o_e, o_f
+
+    return {"f32": f32, "bf16": bf16}
+
+
+def scaling_phase(raw, device, errs, route_launches=None):
+    """The ScoreNet at bench.py's pose counts beyond phase 5's 16
+    (SCALING_POSES), 1AVX at N_PAD, seeded weights (seed 0): at each P,
+    random poses and their selected edges, then on the float32 route
+    (fast(f32)) and the bf16 route (fast()) one forward against the route's
+    plain path on the card (scaling_parity; the phase fails after every P
+    and route if one failed) and a 40-step sample, which must be
+    finite and launch each kernel as the P = 16 sample does a forward
+    (expected_launches; equal to phase 10's fast routes where given), with
+    its steps/s, device busy time (device_ms, one sample) and peak memory;
+    at the largest P every kernel against its plain version (kernel_case,
+    the kernel checks' bounds)."""
+    nets = {"f32": load_model(None, DFMDockConfig(model=FAST_F32), device, seed=0),
+            "bf16": load_model(None, DFMDockConfig(model=ModelConfig.fast()), device, seed=0)}
+    eager = tuple(load_model(None, DFMDockConfig(model=m), device, seed=0)
+                  for m in (ModelConfig(), ModelConfig(compute_dtype="bfloat16")))
+    net64 = copy.deepcopy(nets["f32"]).double()
+    batch = batch_to_tensors(complex_to_batch(raw, pad_to=N_PAD), device)
+    batch64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    failed = []
+    for p in SCALING_POSES:
+        _, pos, idx, edge_mask = edge_inputs(raw, N_PAD, p, p, device)
+        edges = (idx, edge_mask)
+        floor = precision_floors(net64, eager, batch, batch64, pos, edges)
+        for route, net in nets.items():
+            bf16 = route == "bf16"
+            label = f"scaling P={p} {route}"
+            failed += [f"{label} {name}" for name in
+                       scaling_parity(label, net, batch, pos, edges, not bf16, floor[route])]
+            cfg = DFMDockConfig(model=ModelConfig.fast() if bf16 else FAST_F32,
+                                sampler=SamplerConfig(num_steps=STEPS))
+            sampler = build_sampler(net, cfg)
+            gen = torch.Generator(device).manual_seed(p)
+            dev_ms = device_ms(lambda: sampler.sample(batch, p, gen), calls=1)
+            torch.cuda.reset_peak_memory_stats()
+            out, wall, launches = run_path(
+                f"{label} sample", DOCK_KERNELS_BF16 if bf16 else DOCK_KERNELS,
+                lambda: sampler.sample(batch, p, gen), BF16_ABSENT if bf16 else F32_ABSENT)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if not all(torch.isfinite(out[k]).all() for k in ("pos", "energy", "tr_score")):
+                raise AssertionError(f"{label}: non-finite sample")
+            want = expected_launches(sample_forwards(STEPS), bf16)
+            check_launches(f"{label} sample", launches, want)
+            if route_launches is not None:
+                check_launches(f"{label} sample against the P={P} route",
+                               launches, route_launches["fast bf16" if bf16 else "fast"])
+            log(f"# {label}: {p * STEPS / wall:.2f} denoising steps/s ({STEPS} steps, wall "
+                f"{wall:.3f} s), device busy {dev_ms:.1f} ms a sample "
+                f"({100 * dev_ms / (wall * 1e3):.1f}% of the wall), peak memory {peak:.3f} GB, "
+                f"{sample_forwards(STEPS)} forwards with the P={P} sample's launches; "
+                f"card {CARD[0]}")
+        del pos, idx, edge_mask, edges, floor
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"scaling parity failed: {failed}")
+    p = max(SCALING_POSES)
+    kernel_case(raw, device, errs, p, N_PAD, p)
+    torch.cuda.empty_cache()
+
+
+def heun_phase(raw, device, out_root):
+    """The Heun integrator (probability-flow ODE, a corrector forward a
+    step) on the card: 40-step samples of P poses through fast(f32) and
+    fast() (bf16) and their select_kernel=True routes, each finite with
+    sample_forwards(STEPS, "heun") forwards' launches and each select route
+    bit-equal to its precision's fast(); the trajectory gate of
+    test_heun_trajectory_matches_jax at full width (heun_parity); and the
+    dock CLI with --integrator heun on its default route, its launches
+    counted as the dock phase's."""
+    batch = batch_to_tensors(complex_to_batch(raw), device)
+    scfg = SamplerConfig(num_steps=STEPS, ode=True, integrator="heun")
+    forwards = sample_forwards(STEPS, "heun")
+    out = {}
+    for name, mcfg in (("heun", FAST_F32),
+                       ("heun select", dataclasses.replace(FAST_F32, select_kernel=True)),
+                       ("heun bf16", ModelConfig.fast()),
+                       ("heun select bf16", ModelConfig.fast(select_kernel=True))):
+        bf16 = mcfg.compute_dtype == "bfloat16"
+        cfg = DFMDockConfig(model=mcfg, sampler=scfg)
+        sampler = build_sampler(load_model(None, cfg, device), cfg)
+        gen = torch.Generator(device).manual_seed(5)
+        out[name], wall, launches = run_path(
+            f"{name} route", DOCK_KERNELS_BF16 if bf16 else DOCK_KERNELS,
+            lambda: sampler.sample(batch, P, gen, record_trajectory=True),
+            BF16_ABSENT if bf16 else F32_ABSENT)
+        if not torch.isfinite(out[name]["trajectory"]).all():
+            raise AssertionError(f"{name} route: non-finite trajectory")
+        check_launches(f"{name} route", launches, expected_launches(forwards, bf16))
+        log(f"# {name} route P={P} steps={STEPS}: {forwards} forwards, "
+            f"{P * STEPS / wall:.2f} steps/s")
+    for name, ref in (("heun select", "heun"), ("heun select bf16", "heun bf16")):
+        if not all(torch.equal(out[name][k], out[ref][k])
+                   for k in ("trajectory", "pos", "energy", "tr_score", "rot_score")):
+            raise AssertionError(f"the {name} route's trajectory differs from {ref}'s")
+        log(f"# route check: {name} vs {ref} over {STEPS} Heun steps: identical "
+            "trajectories, poses, energies and scores")
+    diff = (out["heun bf16"]["trajectory"] - out["heun"]["trajectory"]).abs()
+    log(f"# route finding: heun bf16 vs heun (f32) after {STEPS} steps: {float(diff.max()):.3e} "
+        "A at most")
+    heun_parity(raw, device)
+    dock_out = os.path.join(out_root, "dock_heun")
+    rows, wall, launches = run_path("heun dock", DOCK_KERNELS_BF16, lambda: dock.main(
+        ["--npz", NPZ, "--num-samples", str(P), "--num-steps", str(STEPS), "--integrator",
+         "heun", "--out-dir", dock_out]), BF16_ABSENT)
+    check_launches("heun dock", launches, expected_launches(forwards, bf16=True))
+    with open(os.path.join(dock_out, "metrics.csv")) as f:
+        csv_rows = list(csv.DictReader(f))
+    energies = np.array([float(r["energy"]) for r in csv_rows])
+    if len(csv_rows) != P or len(rows) != P or not np.isfinite(energies).all():
+        raise AssertionError(f"heun dock: {len(csv_rows)} CSV rows, energies {energies}")
+    log(f"# heun dock 1AVX P={P} steps={STEPS} (--integrator heun, bf16 kernel route): wall "
+        f"{wall:.3f} s, {P * STEPS / wall:.2f} denoising steps/s, {forwards} forwards, best "
+        f"DockQ {max(float(r['DockQ']) for r in csv_rows):.4f}")
+
+
+def heun_parity(raw, device):
+    """HEUN_PARITY_STEPS Heun steps from one start pose (the ligand of 1AVX
+    moved by HEUN_SHIFT) on the float32 kernel route with knn-only edges
+    (sample_size=0), the card against the plain path on the CPU (the same
+    config and seeded weights): every frame, the final pose and the final
+    forward's scores within F32_PARITY_REL of the CPU side's largest
+    magnitude (HEUN_GATED; HEUN_REPORTED printed), the card's launches
+    those of its forwards."""
+    mcfg = dataclasses.replace(FAST_F32, sample_size=0)
+    scfg = SamplerConfig(num_steps=HEUN_PARITY_STEPS, ode=True, integrator="heun",
+                         use_clash_force=True)
+    sides = {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        net = load_model(None, DFMDockConfig(model=mcfg), dev, seed=0)
+        sampler = EMSampler(net, R3Diffuser(R3Config(max_sigma=1.0)), SO3Diffuser(SO3Config()),
+                            scfg)
+        batch = batch_to_tensors(complex_to_batch(raw), dev)
+        shift = torch.tensor(HEUN_SHIFT, device=dev)
+        lig = (batch["lig_mask"] > 0) & (batch["node_mask"] > 0)
+        pos0 = torch.where(lig[:, None, None], batch["pos"] + shift, batch["pos"])
+        init = (pos0[None], shift.reshape(1, 1, 3),
+                torch.tensor(HEUN_ROT, device=dev).reshape(1, 1, 3))
+        run = lambda: sampler.sample(batch, 1, torch.Generator(dev).manual_seed(0), init=init,
+                                     record_trajectory=True)
+        if side == "card":
+            sides["card"], _, launches = run_path("heun parity", DOCK_KERNELS, run, F32_ABSENT)
+            check_launches("heun parity", launches,
+                           expected_launches(sample_forwards(HEUN_PARITY_STEPS, "heun")))
+        else:
+            sides["cpu"] = run()
+            moved = float((sides["cpu"]["pos"][0] - pos0).abs().max())
+            if moved <= 1e-3:
+                raise AssertionError(f"heun parity: the pose moved {moved:.3e} A only")
+    card = {k: v.cpu() for k, v in sides["card"].items()}
+    cpu = sides["cpu"]
+    frames = [(f"frame {i + 1}", card["trajectory"][:, i], cpu["trajectory"][:, i])
+              for i in range(HEUN_PARITY_STEPS)]
+    failed = []
+    for name, a, b in frames + [(k, card[k], cpu[k]) for k in HEUN_GATED + HEUN_REPORTED]:
+        a_err, r_err, scale = max_errs(a, b)
+        ok = r_err <= F32_PARITY_REL
+        failed += [] if ok or name in HEUN_REPORTED else [name]
+        log(f"# heun parity {name}: max abs {a_err:.3e} rel {r_err:.3e} (largest {scale:.3e}) "
+            + ("(reported)" if name in HEUN_REPORTED else "ok" if ok else "FAIL"))
+    if failed:
+        raise AssertionError(f"heun trajectory card vs CPU beyond {F32_PARITY_REL}: {failed}")
+    log(f"# heun parity: {HEUN_PARITY_STEPS} steps, every frame, the pose and the scores within "
+        f"{F32_PARITY_REL} of the CPU's largest (the CPU side is held to JAX by "
+        "tests/test_torch_ranking.py::test_heun_trajectory_matches_jax)")
 
 
 def by_complex(rows):
@@ -2805,7 +3149,19 @@ def train_phases(out_root, device):
     return train_rates, bf16_windows
 
 
-def main():
+ONLY = ("scaling", "heun")  # the phases `--only` runs alone
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Drive dfmdock_tpu_torch's main paths on one "
+                                 "CUDA card and check its kernels (the module docstring).")
+    ap.add_argument("--only", default=None, metavar="PHASES",
+                    help=f"run the device and build phases and then only these, comma-separated "
+                         f"from {', '.join(ONLY)}; no kernel line and no result line")
+    args = ap.parse_args(argv)
+    only = None if args.only is None else args.only.split(",")
+    if only is not None and not set(only) <= set(ONLY):
+        ap.error(f"--only takes {', '.join(ONLY)}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2822,6 +3178,11 @@ def main():
 
     raw = load_npz_complex(NPZ)
     raw["id"] = "1AVX"
+    if only is not None:
+        run_only(only, raw, device)
+        log(f"# --only {','.join(only)}: passed in {time.perf_counter() - t_start:.1f} s; "
+            f"card {smi}")
+        return 0
     t0 = time.perf_counter()
     errs, inputs = kernel_phase(raw, device)
     log(f"# kernel checks: {time.perf_counter() - t0:.1f} s")
@@ -2883,6 +3244,13 @@ def main():
     t0 = time.perf_counter()
     route_launches = route_phase(raw, device)
     log(f"# kernel routes: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scaling_phase(raw, device, errs, route_launches)
+    log(f"# scaling (P = {', '.join(map(str, SCALING_POSES))}): {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as out_root:
+        t0 = time.perf_counter()
+        heun_phase(raw, device, out_root)
+        log(f"# Heun: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches from the main path that runs it: the dock CLI's
     # default (bf16) for the bf16 mode and the kernels both routes share, the
@@ -2988,6 +3356,20 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_only(only, raw, device):
+    """The phases of `only` alone (`--only`), each timed."""
+    if "scaling" in only:
+        t0 = time.perf_counter()
+        scaling_phase(raw, device, {name: 0.0 for name in SOURCES})
+        log(f"# scaling (P = {', '.join(map(str, SCALING_POSES))}): "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "heun" in only:
+        with tempfile.TemporaryDirectory() as out_root:
+            t0 = time.perf_counter()
+            heun_phase(raw, device, out_root)
+            log(f"# Heun: {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -79,6 +79,13 @@ def dispatch_chunk(epoch: int, epochs: int, per_call: int,
     return chunk
 
 
+def refresh_pool(epoch: int, pool_refresh: int, have_pool: bool) -> bool:
+    """Whether the pool path builds its pool before `epoch`: at a run's
+    first epoch (a resumed run counts from 0 again), then every
+    `pool_refresh` epochs (never with 0), as the JAX package's loop does."""
+    return not have_pool or (pool_refresh > 0 and epoch % pool_refresh == 0)
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -267,7 +274,7 @@ def _train(world, args) -> dict:
                                               generator))
                 metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]}
             else:
-                if pool is None or (args.pool_refresh and epoch % args.pool_refresh == 0):
+                if refresh_pool(epoch, args.pool_refresh, pool is not None):
                     pool = upload(build_pool(ds, train_idxs, args.crop_size, pad_to, rng,
                                              variants=args.pool_variants), device)
                     stepper.load(pool)

@@ -1,6 +1,7 @@
 """ROADMAP F7's and db5_demo's reproduction tools on the CPU: the spread summary of
 scripts/dfmdock_witness.py (`--summarize DIR... --spread TAG,...`) on
-synthetic per-seed sweep rows, the training arguments of
+synthetic per-seed sweep rows (three runs, and F7's five with one held-out
+set missing), the training arguments of
 scripts/f7_runs.py against the protocols of
 ckpts/db5_holdout_dfmdock_torch/README.md and ckpts/db5_demo/README.md, and
 the db5_demo summary's paired difference and verdict on synthetic 24-complex
@@ -32,13 +33,16 @@ def poses(level, seed, k):
 
 def write_sweeps(root, levels):
     """Per-pose CSVs as `--out-dir` writes them, for each tag at its
-    (training, held-out) level, seeds SEEDS, into root/train and
-    root/holdout.  Returns the two directories."""
+    (training, held-out) level (None: that set not swept), seeds SEEDS,
+    into root/train and root/holdout.  Returns the two directories."""
     dirs = {name: os.path.join(root, name) for name in ("train", "holdout")}
+    for name in dirs.values():
+        os.makedirs(name, exist_ok=True)
     for tag, lv in levels.items():
         for (name, ids), level in zip((("train", witness.RECORD_ORDER),
                                        ("holdout", witness.HOLDOUT_ORDER)), lv):
-            os.makedirs(dirs[name], exist_ok=True)
+            if level is None:  # this set not swept for this tag
+                continue
             for seed in SEEDS:
                 path = os.path.join(dirs[name], f"port-cuda@{tag}_seed{seed}_{'-'.join(ids)}.csv")
                 with open(path, "w") as f:
@@ -86,6 +90,38 @@ def test_spread_of_synthetic_runs(tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "port-cuda@a-bf16 (beside it)" in printed
     assert "over 3 runs (a, b, c)" in printed and "outside m +- 2s" in printed
+
+
+# F7's full sample: five float32 runs, the second (as seed 0) never swept
+# on the held-out set, a bf16 run beside them and untrained weights swept
+# on the held-out set alone
+LEVELS5 = {"s11": (0.10, 0.020), "s0": (0.20, None), "s1": (0.15, 0.030), "s2": (0.12, 0.025),
+           "s3": (0.18, 0.010), "jax": (0.16, 0.022), "s1-bf16": (0.14, 0.020),
+           "untrained": (None, 0.005)}
+
+
+def test_spread_of_five_runs_with_four_held_out(tmp_path, capsys):
+    dirs = write_sweeps(str(tmp_path), LEVELS5)
+    tags = ["s11", "s0", "s1", "s2", "s3"]
+    out = witness.spread(witness.read_runs(dirs), tags, "jax")
+    for i, (name, counted) in enumerate((("training", tags),
+                                         ("held-out", ["s11", "s1", "s2", "s3"]))):
+        got = out[name]
+        assert list(got["runs"]) == counted
+        vals = np.array([expected(LEVELS5[t][i]) for t in counted])
+        m, s = vals.mean(0), vals.std(0, ddof=1)
+        ref = np.array(expected(LEVELS5["jax"][i]))
+        assert got["m"] == pytest.approx(tuple(m), abs=1e-12)
+        assert got["s"] == pytest.approx(tuple(s), abs=1e-12)
+        assert got["z"] == pytest.approx(tuple((ref - m) / s), rel=1e-9)
+        assert got["inside"] == bool(np.all(np.abs(ref - m) <= 2 * s))
+    assert out["training"]["inside"] and out["held-out"]["inside"]
+    printed = capsys.readouterr().out
+    assert "over 5 runs (s11, s0, s1, s2, s3)" in printed
+    assert "over 4 runs (s11, s1, s2, s3)" in printed
+    assert "port-cuda@untrained (beside it)" in printed
+    assert "held-out set: port-cuda@s0" not in printed
+    assert "training set: port-cuda@untrained" not in printed
 
 
 def test_summarize_cli_prints_the_spread(tmp_path, capsys):

@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only scaling,heun   # phases 1, 2, 10b and 10c alone
+    python3 chip_smoke.py --only capture        # phases 1, 2 and 10d alone
 
 The kernel route has two precisions: fast() computes in bf16, as the JAX
 package's (fused_egcl in its single-pass bf16 mode, counted apart as
@@ -52,10 +53,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launches;
   6. sampler: denoising steps/s over EMSampler.sample alone (the same 16
      poses x 40 steps, no model build, file I/O or DockQ), three runs on
-     each route;
-  7. profile: torch.profiler over a 10-step sample of the same complex on
-     each route; the device's busy share, the kernels that take its time,
-     and each port kernel's device time per launch;
+     each route, each a replay of the sample's captured graph;
+  7. profile: torch.profiler over a 10-step sample (a replay) of the same
+     complex on each route; the device's busy share, the kernels that take
+     its time, and each port kernel's device time per launch;
   8. ranking dock: the dock CLI with --rank-by reranker (1 + 5 t x 4 draws
      = 21 fused_energy launches) and with --energy-draws 4; the inputs of
      the reranker run's first fused_energy call (its final poses) are kept,
@@ -147,7 +148,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      has one route (select_topk, ties to the lower index), so each select
      route's trajectory must equal its precision's fast() bit for bit (a
      gate); where the bins route's and the bf16 route's leave fast(f32)'s
-     is reported;
+     is reported (these samples run eagerly: the edge recorder is Python
+     called every forward);
  10b. scaling: the ScoreNet at bench.py's other pose counts, P in {40, 64,
      120} (1AVX at N = 448, seeded weights): on the float32 and the bf16
      route one forward of random poses on injected edges against the
@@ -158,7 +160,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      eager bf16 route's from float32, on the card), and a 40-step sample,
      finite, with the P = 16 sample's launches a forward (six fused_egcl,
      one of them coord, one edge_table, one select_topk; one fused_energy
-     in the final forward), its steps/s, device busy time and peak memory;
+     in the final forward), its steps/s, device busy time and peak memory,
+     captured (with the capture's seconds and peak) and eager beside it;
      at P = 120 every kernel against its plain version at the kernel
      checks' bounds;
  10c. Heun (--integrator heun, the probability-flow ODE with a corrector
@@ -169,6 +172,36 @@ Phases, in order; any failure ends the run with a non-zero exit:
      route against the CPU's plain path (every frame, the pose and the
      scores within F32_PARITY_REL; the energy and tr_update printed); the
      dock CLI with --integrator heun.
+ 10d. capture: the samplers as CUDA graphs (sampler/graph.py: one capture
+     per shape key, replayed), each against its eager run from the same
+     generator state, bit for bit in every output: EM and Heun over 40
+     steps of 16 poses on the f32, bf16, select and bins routes (launches
+     exact, read from the run's trace; the caller's generator as the
+     eager sample leaves it, the graph's registered generator the
+     helper's own in its state; a second replay equal to the eager sample
+     from its state and unlike the first), the DFMDock lineage, Picard at
+     K = T and T + 1, the ranking draws at two t, and the dock and sweep
+     CLIs (the graph draws from the generator --seed seeds); the numbers
+     at P = 16 as 10b's; the 24 DB5 complexes at one pose through EM, Heun
+     and Picard (K = 10) captured, EM also eager (walls, captures: one a
+     bucket, replays, peak memory, the shared pool's size).
+Every sampler path but phase 10's routes and 9d's recorded runs runs as
+the replay of one captured graph per shape key; run_path prints the
+captures and replays of each path.  A path's launches are the kernels its
+samples executed: a wrapper counts where it is called (in a capture, a
+launch the graph records; a replay calls no wrapper).  The runs that feed
+the kernel line and the exactly gated runs that replay each graph once
+at P = 16 and up (the docks of 5, the samples and docks of 10b-10d, the
+PDB dock) are traced (torch.profiler, device records): their launches are read from the
+trace, less the warm-ups' that the wrappers counted, and the trace must
+hold exactly what the wrappers and the graphs' records account for.
+Elsewhere, in the runs that replay one graph several times (the ranking
+docks of 8, 10d's ranking draws, the CSV dock: their traces came back
+without some replays' records) and in the one-pose Heun parity and
+Picard runs (10c's parity trace lacked a forward's first three kernels in
+two calls), the launches are the wrappers'
+counts less the warm-ups' and the captures' and plus each replay's
+recorded launches (sampler/graph.GraphStats).
 Phases 9i-9l run last, after the kernel table's timings (below).
 The kernel table after phase 10 gives each kernel's time by CUDA events,
 its device time (torch.profiler, from a trace that recorded every kernel a
@@ -185,12 +218,14 @@ launch counts set to 0 just before it and read just after; a kernel of the
 path that did not launch (or one that must not run and did: the other
 precision's fused_egcl mode, and on the DFMDock lineage the coord and
 energy kernels) fails the run.  The kernel line's fused_egcl_bf16 rows
-take their launches from the dock CLI's default (bf16) run, the float32
-rows from the float32 dock.  The last line is {"ok": true,
+take their launches from the dock CLI's default (bf16) traced run, the
+float32 rows and fused_energy from the float32 one; each row's "wrapper_launches" is what
+its wrapper counted in that run (the warm-up's launches and the capture's
+recorded ones), which must not be 0.  The last line is {"ok": true,
 "device": {...}}; the line before it lists the kernels.  Without a CUDA card
 the script exits non-zero and prints no result.  `--only PHASES` runs the
-device and build phases and then only the named ones (scaling, heun), and
-prints neither the kernel line nor a result line.
+device and build phases and then only the named ones (scaling, heun,
+capture), and prints neither the kernel line nor a result line.
 """
 from __future__ import annotations
 
@@ -270,6 +305,7 @@ from dfmdock_tpu_torch.parallel import init_world
 from dfmdock_tpu_torch.parallel.dryrun import entry
 from dfmdock_tpu_torch.parallel.mesh import make_dp_train_step
 from dfmdock_tpu_torch.sampler import EMSampler, PicardSampler
+from dfmdock_tpu_torch.sampler import graph as graph_mod
 from dfmdock_tpu_torch.sampler.em import modify_coords, randomize_pose, step_schedule
 from dfmdock_tpu_torch.train.pool import PoolStep, make_training_batch, train_step, upload
 from dfmdock_tpu_torch.train.trainer import make_optimizer
@@ -610,24 +646,105 @@ def reset_counts():
     edge_bins.launches = 0
 
 
-def run_path(name, kernels, fn, absent=(), graphs=False):
+# each counted kernel by the name the profiler gives its launches (its
+# __global__ function and template argument); fused_energy by its second
+# kernel, one a call
+TRACE_NAMES = (("fused_egcl_bf16_kernel<true>", "fused_egcl_coord_bf16"),
+               ("fused_egcl_bf16_kernel<false>", "fused_egcl_bf16"),
+               ("fused_egcl_kernel<true>", "fused_egcl_coord"),
+               ("fused_egcl_kernel<false>", "fused_egcl"),
+               ("edge_table_kernel<true>", "edge_table"),
+               ("edge_table_kernel<false>", "edge_bins"),
+               ("energy_reduce_kernel", "fused_energy"),
+               ("select_topk_kernel", "select_topk"))
+WRAPPER_COUNTS = {}  # each run_path run's wrapper counts, by its name
+
+
+@contextlib.contextmanager
+def traced_run(margin_s=0.3):
+    """Trace the device's kernels over the block (torch.profiler, device
+    records only) after one warm-up step of the profiler, whose records are
+    dropped, with `margin_s` of idle time on each side of the block: traces
+    that started right before a burst of launches, or ended right after
+    the last one, came back without the first or the last kernels.  Yields
+    a list that holds the trace's key_averages() once the block has
+    ended."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    events = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: events.extend(p.key_averages())) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up step ends: the traced step begins
+        time.sleep(margin_s)
+        yield events
+        torch.cuda.synchronize()
+        time.sleep(margin_s)
+        prof.step()  # the traced step ends: its trace is read
+
+
+def traced_launches(events) -> dict:
+    """Each counted kernel's executions in a torch.profiler trace's
+    key_averages() (its device records, a CUDA graph's replays included)."""
+    out = dict.fromkeys(launch_counts(), 0)
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        hit = next((k for key, k in TRACE_NAMES if key in e.key), None)
+        if hit is not None:
+            out[hit] += e.count
+    return out
+
+
+def run_path(name, kernels, fn, absent=(), graphs=False, trace=False):
     """Run one main path with the launch counts set to 0 just before it and
     read just after; fail if one of `kernels` did not launch, or one of
-    `absent` did.  With `graphs` (a training CLI run, whose result's "graph"
-    says what its captured steps launched) the counts are the launches
-    made: the wrappers count where a graph is captured, which launches
-    nothing, so the captures' counts are taken off and the replays' added.
-    Returns (fn's result, wall seconds, counts)."""
+    `absent` did.  Returns (fn's result, wall seconds, launches).
+
+    The launches are the kernels the path's samples executed: the wrappers
+    count where they are called, which in a capture (sampler/graph.py)
+    records a launch and executes nothing, and a replay calls no wrapper;
+    so the count is the wrappers' own less what the warm-ups ran and the
+    captures recorded, plus what each replay's graph recorded.  With
+    `trace` the run is traced (torch.profiler, device records only) and the
+    launches are read from the trace, less the warm-ups' (which the
+    wrappers counted where they ran); the trace must hold exactly what the
+    wrappers and the graphs account for, or the phase fails.  A traced
+    run's wall includes the tracing.  With `graphs` (a training CLI run,
+    whose result's "graph" says what its captured steps launched) the
+    training graphs' captures and replays are accounted alike."""
     reset_counts()
+    graph_mod.reset_totals()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    result = fn()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
+    with traced_run() if trace else contextlib.nullcontext() as events:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counted = launch_counts()
+    WRAPPER_COUNTS[name] = dict(counted)
+    sampled = graph_mod.totals()
+    launches = {k: v - sampled.warmup_launches.get(k, 0) - sampled.captured_launches.get(k, 0)
+                + sampled.replayed_launches.get(k, 0) for k, v in counted.items()}
+    if sampled.captures or sampled.replays:
+        log(f"# {name}: {sampled.captures} sample graph(s) captured in "
+            f"{sampled.capture_s:.3f} s, {sampled.replays} replays; the wrappers counted "
+            f"{json.dumps({k: v for k, v in counted.items() if v})} (the warm-ups ran "
+            f"{json.dumps(sampled.warmup_launches)}, the captures recorded "
+            f"{json.dumps(sampled.captured_launches)}, the replays ran "
+            f"{json.dumps(sampled.replayed_launches)})")
+    if trace:
+        executed = traced_launches(events)
+        accounted = {k: v + sampled.warmup_launches.get(k, 0) for k, v in launches.items()}
+        if executed != accounted:
+            raise AssertionError(f"{name}: the trace executed {json.dumps(executed)}, the "
+                                 f"wrappers and the graphs account for {json.dumps(accounted)}")
+        launches = {k: v - sampled.warmup_launches.get(k, 0) for k, v in executed.items()}
+        log(f"# {name}: traced, the trace executed {json.dumps({k: v for k, v in executed.items() if v})}")
     if graphs:
         g = result["graph"]
-        counted = dict(launches)
         for k in launches:
             launches[k] += g["replayed_launches"].get(k, 0) - g["captured_launches"].get(k, 0)
         log(f"# {name}: {g['captures']} captured graph(s), {g['replays']} replays; the "
@@ -640,7 +757,7 @@ def run_path(name, kernels, fn, absent=(), graphs=False):
     for k in absent:
         if launches[k] != 0:
             raise AssertionError(f"the {name} run launched {launches[k]} {k} kernels")
-    log(f"# launches in the {name} run: {json.dumps(launches)}")
+    log(f"# launches in the {name} run{' (traced)' if trace else ''}: {json.dumps(launches)}")
     return result, wall, launches
 
 
@@ -1153,10 +1270,10 @@ def parity_phase(raw, device):
 
 
 def dock_phase(out_root):
-    """The dock CLI in-process: a warm-up of each route, then the counted
-    and timed runs of the CLI's default (fast(), bf16) and of the float32
-    kernel route (the API's `model`).  Returns {route: (launches,
-    denoising steps/s)}."""
+    """The dock CLI in-process: a warm-up of each route, then the timed and
+    the traced (counted) runs of the CLI's default (fast(), bf16) and of the
+    float32 kernel route (the API's `model`).  Returns {route: (the traced
+    run's launches, the timed run's denoising steps/s)}."""
     result = {}
     for route, model, kernels, absent in (("bf16", None, DOCK_KERNELS_BF16, BF16_ABSENT),
                                           ("f32", FAST_F32, DOCK_KERNELS, F32_ABSENT)):
@@ -1164,9 +1281,11 @@ def dock_phase(out_root):
                    "--out-dir", os.path.join(out_root, f"warm_{route}")], model)
         out = os.path.join(out_root, f"dock_{route}")
         label = "dock" if model is None else "f32 dock"
-        rows, wall, launches = run_path(label, kernels, lambda: dock.main(
-            ["--npz", NPZ, "--num-samples", str(P), "--num-steps", str(STEPS), "--out-dir", out],
-            model), absent)
+        argv = ["--npz", NPZ, "--num-samples", str(P), "--num-steps", str(STEPS)]
+        rows, wall, _ = run_path(f"{label} (timed)", kernels, lambda: dock.main(
+            argv + ["--out-dir", out], model), absent)
+        _, _, launches = run_path(label, kernels, lambda: dock.main(
+            argv + ["--out-dir", out + "_traced"], model), absent, trace=True)
         with open(os.path.join(out, "metrics.csv")) as f:
             csv_rows = list(csv.DictReader(f))
         if len(csv_rows) != P or len(rows) != P:
@@ -1198,6 +1317,8 @@ def sampler_phase(raw, device, reps=3):
         batch = batch_to_tensors(complex_to_batch(raw), device)
         gen = torch.Generator(device).manual_seed(0)
         sampler.sample(batch, P, gen)
+        stats = sampler.graphs.stats
+        log(f"# sampler {route}: {stats.captures} graph captured in {stats.capture_s:.3f} s")
         walls = []
         for _ in range(reps):
             torch.cuda.synchronize()
@@ -1270,16 +1391,21 @@ def read_csv(path):
 
 def rank_phase(out_root):
     """The dock CLI ranking its poses on the float32 kernel route: --rank-by
-    reranker (features at 5 t x 4 draws) and --energy-draws 4.  Returns the
-    reranker run's launches and the inputs of its first fused_energy call
-    (the forward at the final poses), on which the kernel line times
-    fused_energy and counts its bound."""
+    reranker (features at 5 t x 4 draws, one captured graph a t) and
+    --energy-draws 4.  Returns the reranker run's launches and the inputs
+    of its sample's fused_energy call (the final forward at the final
+    poses: the capture's call, its inputs cloned inside the graph, so the
+    replay fills them), on which the kernel line times fused_energy and
+    counts its bound."""
     if not os.path.exists(dock.DEFAULT_RERANKER):
         raise AssertionError(f"reranker weights missing: {dock.DEFAULT_RERANKER}")
     result, calls = None, []
 
     def recording(*args):
-        calls.append(args)
+        # a sample's and a draw's forwards run as replays of captured graphs:
+        # the call recorded is the capture's, whose clones the replays fill
+        if torch.cuda.is_current_stream_capturing():
+            calls.append(tuple(a.clone() for a in args))
         return fused_energy(*args)
 
     for label, flags, added, energy_launches in (
@@ -1310,9 +1436,10 @@ def rank_phase(out_root):
         if result is None:
             result = launches
     kept = [float(c[2].sum()) for c in calls]
-    log(f"# rank-by reranker: fused_energy kept pairs per call (P={P}, N="
+    log(f"# rank-by reranker: fused_energy kept pairs per captured call (P={P}, N="
         f"{calls[0][2].shape[-1]}): first {kept[0]:.0f}, min {min(kept):.0f}, "
-        f"max {max(kept):.0f} over {len(kept)} calls")
+        f"max {max(kept):.0f} over {len(kept)} calls (the sample's graph and one graph a "
+        f"t, each read after its last replay)")
     return result, calls[0]
 
 
@@ -1344,8 +1471,11 @@ def route_phase(raw, device, steps=STEPS):
     route (the JAX config's select_kernel flag, which the port keeps only
     for equality) must reproduce its precision's fast() edges and trajectory
     bit for bit; where the bins route's torch geometry, or the bf16 route,
-    leaves the float32 fast() trajectory is reported.  Returns the launches
-    of each route."""
+    leaves the float32 fast() trajectory is reported.  The samples run
+    eagerly (capture=False): the recorder hooks each forward in Python,
+    which a replayed graph would not call; phase 10d holds the routes'
+    captured samples against eager ones.  Returns the launches of each
+    route."""
     batch = batch_to_tensors(complex_to_batch(raw), device)
     out, launches, edges = {}, {}, {}
     select = score_net_mod.select_edges
@@ -1368,11 +1498,12 @@ def route_phase(raw, device, steps=STEPS):
             edges[name] = []
             out[name], wall, launches[name] = run_path(
                 f"{name} route", ROUTE_KERNELS[name],
-                lambda: sampler.sample(batch, P, gen, record_trajectory=True),
+                lambda: sampler.sample(batch, P, gen, record_trajectory=True, capture=False),
                 F32_ABSENT if mcfg.compute_dtype == "float32" else BF16_ABSENT)
             if not torch.isfinite(out[name]["trajectory"]).all():
                 raise AssertionError(f"{name} route: non-finite trajectory")
-            log(f"# {name} route P={P} steps={steps}: {P * steps / wall:.2f} steps/s")
+            log(f"# {name} route P={P} steps={steps}: {P * steps / wall:.2f} steps/s (eager: "
+                "the edge recorder runs in Python every forward)")
     finally:
         score_net_mod.select_edges = select
     for name, ref_name, gate in (("select", "fast", True), ("bins", "fast", False),
@@ -1497,6 +1628,57 @@ def precision_floors(net64, eager, batch, batch64, pos, edges):
     return {"f32": f32, "bf16": bf16}
 
 
+def sample_numbers(label, sampler, batch, p, gen, bf16):
+    """A 40-step sample of `p` poses, captured (the default) and eager on
+    the same sampler: the capture's first call (capture seconds, its wall,
+    its peak memory and the graph pool's size: a replay allocates no more
+    than its outputs), a traced replay (launches exactly the P = 16
+    sample's a forward, read from the trace), a replay's device busy time
+    (device_ms, one call) and a timed replay (steps/s, wall), then the same
+    eager (capture=False: wall, busy time, peak memory, the same launches,
+    which the wrappers count as they run).  Returns (the numbers, the
+    timed replay's outputs, the traced replay's launches)."""
+    kernels, absent = ((DOCK_KERNELS_BF16, BF16_ABSENT) if bf16 else (DOCK_KERNELS, F32_ABSENT))
+    want = expected_launches(sample_forwards(STEPS), bf16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, first, launches = run_path(f"{label} capture", kernels,
+                                  lambda: sampler.sample(batch, p, gen), absent)
+    check_launches(f"{label} capture", launches, want)
+    got = {"capture_s": graph_mod.totals().capture_s, "first_s": first,
+           "capture_peak": torch.cuda.max_memory_allocated() / 1e9}
+    got["pool"] = pool_gb(sampler.graphs)
+    _, _, traced = run_path(f"{label} traced sample", kernels,
+                            lambda: sampler.sample(batch, p, gen), absent, trace=True)
+    check_launches(f"{label} traced sample", traced, want)
+    got["busy_ms"] = device_ms(lambda: sampler.sample(batch, p, gen), calls=1)
+    out, got["wall"], _ = run_path(f"{label} sample", kernels,
+                                   lambda: sampler.sample(batch, p, gen), absent)
+    torch.cuda.reset_peak_memory_stats()
+    _, got["eager_wall"], eager_launches = run_path(
+        f"{label} eager sample", kernels,
+        lambda: sampler.sample(batch, p, gen, capture=False), absent)
+    got["eager_peak"] = torch.cuda.max_memory_allocated() / 1e9
+    check_launches(f"{label} eager sample", eager_launches, want)
+    got["eager_busy_ms"] = device_ms(lambda: sampler.sample(batch, p, gen, capture=False),
+                                     calls=1)
+    rate = lambda wall: p * STEPS / wall
+    log(f"# {label}: captured {rate(got['wall']):.2f} denoising steps/s ({STEPS} steps, wall "
+        f"{got['wall']:.4f} s a sample), device busy {got['busy_ms']:.1f} ms "
+        f"({100 * got['busy_ms'] / (got['wall'] * 1e3):.1f}% of the wall), peak memory "
+        f"{got['capture_peak']:.3f} GB in the capture, the graph's pool "
+        + ("not named by the allocator's snapshot" if got["pool"] is None
+           else f"{got['pool']:.3f} GB")
+        + f" (the capture took {got['capture_s']:.3f} s, its first sample "
+        f"{got['first_s']:.3f} s); eager "
+        f"{rate(got['eager_wall']):.2f} steps/s (wall {got['eager_wall']:.4f} s), busy "
+        f"{got['eager_busy_ms']:.1f} ms "
+        f"({100 * got['eager_busy_ms'] / (got['eager_wall'] * 1e3):.1f}%), peak "
+        f"{got['eager_peak']:.3f} GB; {sample_forwards(STEPS)} forwards with the P={P} "
+        f"sample's launches either way; card {CARD[0]}")
+    return got, out, traced
+
+
 def scaling_phase(raw, device, errs, route_launches=None):
     """The ScoreNet at bench.py's pose counts beyond phase 5's 16
     (SCALING_POSES), 1AVX at N_PAD, seeded weights (seed 0): at each P,
@@ -1506,9 +1688,9 @@ def scaling_phase(raw, device, errs, route_launches=None):
     and route if one failed) and a 40-step sample, which must be
     finite and launch each kernel as the P = 16 sample does a forward
     (expected_launches; equal to phase 10's fast routes where given), with
-    its steps/s, device busy time (device_ms, one sample) and peak memory;
-    at the largest P every kernel against its plain version (kernel_case,
-    the kernel checks' bounds)."""
+    its steps/s, device busy time (device_ms, one sample) and peak memory,
+    captured and eager (sample_numbers); at the largest P every kernel
+    against its plain version (kernel_case, the kernel checks' bounds)."""
     nets = {"f32": load_model(None, DFMDockConfig(model=FAST_F32), device, seed=0),
             "bf16": load_model(None, DFMDockConfig(model=ModelConfig.fast()), device, seed=0)}
     eager = tuple(load_model(None, DFMDockConfig(model=m), device, seed=0)
@@ -1530,24 +1712,12 @@ def scaling_phase(raw, device, errs, route_launches=None):
                                 sampler=SamplerConfig(num_steps=STEPS))
             sampler = build_sampler(net, cfg)
             gen = torch.Generator(device).manual_seed(p)
-            dev_ms = device_ms(lambda: sampler.sample(batch, p, gen), calls=1)
-            torch.cuda.reset_peak_memory_stats()
-            out, wall, launches = run_path(
-                f"{label} sample", DOCK_KERNELS_BF16 if bf16 else DOCK_KERNELS,
-                lambda: sampler.sample(batch, p, gen), BF16_ABSENT if bf16 else F32_ABSENT)
-            peak = torch.cuda.max_memory_allocated() / 1e9
+            cap, out, launches = sample_numbers(label, sampler, batch, p, gen, bf16)
             if not all(torch.isfinite(out[k]).all() for k in ("pos", "energy", "tr_score")):
                 raise AssertionError(f"{label}: non-finite sample")
-            want = expected_launches(sample_forwards(STEPS), bf16)
-            check_launches(f"{label} sample", launches, want)
             if route_launches is not None:
                 check_launches(f"{label} sample against the P={P} route",
                                launches, route_launches["fast bf16" if bf16 else "fast"])
-            log(f"# {label}: {p * STEPS / wall:.2f} denoising steps/s ({STEPS} steps, wall "
-                f"{wall:.3f} s), device busy {dev_ms:.1f} ms a sample "
-                f"({100 * dev_ms / (wall * 1e3):.1f}% of the wall), peak memory {peak:.3f} GB, "
-                f"{sample_forwards(STEPS)} forwards with the P={P} sample's launches; "
-                f"card {CARD[0]}")
         del pos, idx, edge_mask, edges, floor
         torch.cuda.empty_cache()
     if failed:
@@ -1555,6 +1725,314 @@ def scaling_phase(raw, device, errs, route_launches=None):
     p = max(SCALING_POSES)
     kernel_case(raw, device, errs, p, N_PAD, p)
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def sample_captures():
+    """Record, for each sample call inside that captured a graph, the
+    caller's generator and the generator registered with the graph (the
+    helper's own), with their states after the call."""
+    records, run = [], graph_mod.SampleGraphs.run
+
+    def recording(self, module, key, inputs, body, generator, capture=None):
+        captures = self.stats.captures
+        out = run(self, module, key, inputs, body, generator, capture)
+        if self.stats.captures > captures:
+            records.append((generator, self.generator, generator.get_state(),
+                            self.generator.get_state()))
+        return out
+
+    graph_mod.SampleGraphs.run = recording
+    try:
+        yield records
+    finally:
+        graph_mod.SampleGraphs.run = run
+
+
+def check_same(label, got, want):
+    """Fail unless every output of `got` equals `want`'s bit for bit."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: outputs {sorted(got)} against {sorted(want)}")
+    for k in want:
+        a, b = (torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
+                for v in (got[k], want[k]))
+        if not torch.equal(a, b):
+            err = (a.double() - b.double()).abs().max().item()
+            raise AssertionError(f"{label}: {k} differs from the eager sample's (max abs "
+                                 f"{err:.3e})")
+
+
+def check_registered(label, records, seeds=None):
+    """Every captured graph's registered generator is a CUDA generator of
+    the helper's own, which the replay left in the caller's generator's
+    state (the caller's draws), and, with `seeds`, the caller's generator is
+    seeded so."""
+    for gen, own, state, own_state in records:
+        if own is gen or own.device.type != "cuda" or not torch.equal(state, own_state):
+            raise AssertionError(f"{label}: the registered generator is not the helper's own "
+                                 f"CUDA generator in the caller's state")
+        if seeds is not None and (gen.device.type != "cuda" or gen.initial_seed() not in seeds):
+            raise AssertionError(f"{label}: the caller's generator is seeded "
+                                 f"{gen.initial_seed()} on {gen.device}, not {seeds}")
+
+
+def pool_gb(graphs):
+    """The reserved bytes of a helper's shared graph pool (GB), from the
+    allocator's snapshot; None where the snapshot does not name pools."""
+    if graphs.backend.pool is None:
+        return 0.0
+    segments = torch.cuda.memory._snapshot()["segments"]
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    pool = tuple(graphs.backend.pool)
+    return sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) == pool) / 1e9
+
+
+CAPTURE_ROUTES = (("f32", FAST_F32, "fast"),
+                  ("bf16", ModelConfig.fast(), "fast bf16"),
+                  ("select", dataclasses.replace(FAST_F32, select_kernel=True), "select"),
+                  ("bins", dataclasses.replace(FAST_F32, edge_table_kernel=False), "bins"))
+CAPTURE_SWEEP_POSES = 1
+
+
+def capture_phase(raw, device):
+    """Phase 10d: the samplers as captured graphs against their eager runs.
+    EM and Heun 40-step samples of P poses on the f32, bf16, select and bins
+    routes (seeded weights): every output, trajectory included, bit-equal
+    to the eager sample from the same generator state, launches exact (the
+    captured run's read from its trace) and equal to the eager run's, the
+    caller's generator left as eager leaves it (the warm-up and the capture
+    draw from the helper's own generator, registered with the graph); a
+    second replay equal to the eager sample from that state and unlike the
+    first.  The DFMDock lineage
+    (trained weights, P = 16), Picard at K = T and T + 1 (trained mlsb,
+    P = 1) and the ranking draws (4 draws at two t) likewise, traced.  The
+    dock and sweep CLIs' graphs draw from the generator they seed (--seed),
+    their poses bit-equal to an eager sample from it.  Then the numbers at P =
+    16 (sample_numbers, both routes; 10b gives P = 40, 64, 120) and the
+    24-complex sweeps at P = 1 of EM, Heun and Picard (the sweep CLI's
+    bucket-128 loop over cli.common.dock_complex, bf16, trained weights),
+    captured, and EM also eager (each complex's poses bit-equal), with their
+    walls, captures, replays, peak memory and the shared pool's size (the
+    trained sweeps of phase 9 run the 24 complexes at P poses captured)."""
+    batch = batch_to_tensors(complex_to_batch(raw), device)
+    t0 = time.perf_counter()
+    for integ, scfg in (("em", SamplerConfig(num_steps=STEPS)),
+                        ("heun", SamplerConfig(num_steps=STEPS, ode=True, integrator="heun"))):
+        forwards = sample_forwards(STEPS, integ)
+        for route, mcfg, kernel_route in CAPTURE_ROUTES:
+            label = f"capture {integ} {route}"
+            bf16 = mcfg.compute_dtype == "bfloat16"
+            absent = BF16_ABSENT if bf16 else F32_ABSENT
+            want = expected_launches(forwards, bf16)
+            if route == "bins":
+                want["edge_bins"], want["edge_table"] = want["edge_table"], 0
+            cfg = DFMDockConfig(model=mcfg, sampler=scfg)
+            sampler = build_sampler(load_model(None, cfg, device), cfg)
+            gen = torch.Generator(device)
+            run = lambda **kw: sampler.sample(batch, P, gen, record_trajectory=True, **kw)
+            gen.manual_seed(5)
+            eager, _, eager_launches = run_path(f"{label} eager", ROUTE_KERNELS[kernel_route],
+                                                lambda: run(capture=False), absent)
+            eager_state = gen.get_state()
+            gen.manual_seed(5)
+            with sample_captures() as records:
+                got, _, launches = run_path(f"{label} captured", ROUTE_KERNELS[kernel_route],
+                                            run, absent, trace=True)
+            check_same(label, got, eager)
+            check_launches(f"{label} captured", launches, want)
+            check_launches(f"{label} eager", eager_launches, want)
+            check_registered(label, records, {5})
+            if len(records) != 1 or not torch.equal(gen.get_state(), eager_state):
+                raise AssertionError(f"{label}: {len(records)} captures; the generator after "
+                                     "the replay is not where the eager sample leaves it")
+            again = run()
+            gen.set_state(eager_state)
+            check_same(f"{label} second replay", again, run(capture=False))
+            if torch.equal(again["pos"], got["pos"]):
+                raise AssertionError(f"{label}: two replays in a row drew the same poses")
+            log(f"# {label} P={P} steps={STEPS}: captured bit-equal to eager (every output, "
+                f"trajectory included), {forwards} forwards' launches exact, the generator "
+                f"as eager leaves it; the next replay differs from the first and equals the "
+                f"eager sample from its state")
+            del sampler
+    t0 = log_since("routes", t0)
+    capture_lineages(raw, device, batch)
+    t0 = log_since("DFMDock, Picard and the ranking draws", t0)
+    capture_clis(raw, device, batch)
+    t0 = log_since("the CLIs' generator", t0)
+    for route, mcfg in (("f32", FAST_F32), ("bf16", ModelConfig.fast())):
+        cfg = DFMDockConfig(model=mcfg, sampler=SamplerConfig(num_steps=STEPS))
+        sampler = build_sampler(load_model(None, cfg, device, seed=0), cfg)
+        padded = batch_to_tensors(complex_to_batch(raw, pad_to=N_PAD), device)
+        sample_numbers(f"capture numbers P={P} {route}", sampler, padded, P,
+                       torch.Generator(device).manual_seed(P), route == "bf16")
+    t0 = log_since(f"the numbers at P={P}", t0)
+    capture_sweeps(device)
+    log_since("the 24-complex sweeps", t0)
+
+
+def log_since(what, t0):
+    """Log the seconds since `t0` spent on `what` (phase 10d's parts); the time now."""
+    now = time.perf_counter()
+    log(f"# capture: {what} {now - t0:.1f} s")
+    return now
+
+
+def capture_lineages(raw, device, batch):
+    """The DFMDock lineage (EM, P poses), Picard at K = T and K = T + 1 and
+    the ranking draws: captured against eager, bit for bit."""
+    cfg = DFMDockConfig(model=FAST_F32, sampler=SamplerConfig(num_steps=STEPS))
+    net = load_model(DFMDOCK_NPZ, cfg, device, lineage="dfmdock")
+    sampler = build_sampler(net, cfg)
+    gen = lambda: torch.Generator(device).manual_seed(5)
+    eager = sampler.sample(batch, P, gen(), record_trajectory=True, capture=False)
+    got, _, launches = run_path("capture dfmdock", DFMDOCK_KERNELS, lambda: sampler.sample(
+        batch, P, gen(), record_trajectory=True), DFMDOCK_ABSENT, trace=True)
+    check_same("capture dfmdock", got, eager)
+    forwards = sample_forwards(STEPS)
+    check_launches("capture dfmdock", launches, {
+        **dict.fromkeys(launches, 0), "select_topk": forwards, "edge_table": forwards,
+        "fused_egcl": cfg.model.depth * forwards})
+    log(f"# capture dfmdock P={P} steps={STEPS} (trained weights, f32 route): bit-equal to "
+        f"eager, {forwards} forwards of six agg-only fused_egcl")
+    del sampler, net
+    cfg = DFMDockConfig(model=FAST_F32, sampler=SamplerConfig(num_steps=STEPS, ode=True))
+    net = load_model(DEMO_NPZ, cfg, device)
+    seq = build_sampler(net, cfg)
+    pics = {}
+    for k in (STEPS, STEPS + 1):
+        pic = PicardSampler(net, seq.r3, seq.so3, cfg.sampler, num_iters=k)
+        eager = pic.sample(batch, 1, torch.Generator(device).manual_seed(11),
+                           record_trajectory=True, capture=False)
+        pics[k], _, launches = run_path(f"capture Picard K={k}", DOCK_KERNELS, lambda: pic.sample(
+            batch, 1, torch.Generator(device).manual_seed(11), record_trajectory=True),
+            F32_ABSENT)
+        check_same(f"capture Picard K={k}", pics[k], eager)
+        check_launches(f"capture Picard K={k}", launches, expected_launches(k + 1))
+    check_same("capture Picard K=T against K=T+1", pics[STEPS], pics[STEPS + 1])
+    log(f"# capture Picard P=1 K={STEPS}, {STEPS + 1} (trained mlsb, f32): each bit-equal to "
+        f"eager, K=T bit-equal to K=T+1, one graph a K ({STEPS} rounds of {STEPS} poses and "
+        f"the final forward)")
+    pos = pics[STEPS]["pos"].expand(P, -1, -1, -1).cpu().numpy() + np.random.RandomState(
+        0).randn(P, 1, 1, 3).astype(np.float32)
+    n = pos.shape[1]
+    eager = {t: sweep._multi_draw_scores(net, raw, pos, n, RERANK_DRAWS, 3, device, t,
+                                         capture=False) for t in (1e-5, 0.5)}
+    draws = graph_mod.SampleGraphs()
+    got, _, launches = run_path("capture ranking draws", DOCK_KERNELS, lambda: {
+        t: sweep._multi_draw_scores(net, raw, pos, n, RERANK_DRAWS, 3, device, t, graphs=draws)
+        for t in (1e-5, 0.5)}, F32_ABSENT)
+    for t in eager:
+        check_same(f"capture ranking draws t={t}", got[t], eager[t])
+    check_launches("capture ranking draws", launches,
+                   {**expected_launches(2 * RERANK_DRAWS), "fused_energy": 2 * RERANK_DRAWS})
+    log(f"# capture ranking draws ({RERANK_DRAWS} draws at t = 1e-5 and 0.5, P={P}): energy, "
+        "icons and snorm bit-equal to eager, one graph a t, its generator re-seeded a draw")
+
+
+def capture_clis(raw, device, batch, steps=10, seed=7):
+    """The dock and sweep CLIs (seeded weights, P poses, `steps` steps):
+    their graph's registered generator is the helper's own, left in the
+    state of the generator --seed seeds, and their poses equal an eager
+    sample from it."""
+    cfg = DFMDockConfig(model=FAST_F32, sampler=SamplerConfig(num_steps=steps))
+    sampler = build_sampler(load_model(None, cfg, device), cfg)
+    with tempfile.TemporaryDirectory() as out_root:
+        for name, main, argv, pad_to in (
+                ("dock", dock.main, ["--npz", NPZ, "--out-dir", out_root], None),
+                ("sweep", sweep.main, ["--ids", "1AVX", "--out-csv",
+                                       os.path.join(out_root, "s.csv")], 512)):
+            results, module = [], sweep if name == "sweep" else dock
+            orig = module.dock_complex
+
+            def recording(*args, **kwargs):
+                out = orig(*args, **kwargs)
+                results.append(out[1])
+                return out
+
+            module.dock_complex = recording
+            try:
+                with sample_captures() as records:
+                    run_path(f"capture {name} CLI", DOCK_KERNELS, lambda: main(
+                        argv + ["--num-samples", str(P), "--num-steps", str(steps), "--seed",
+                                str(seed)], FAST_F32), F32_ABSENT)
+            finally:
+                module.dock_complex = orig
+            check_registered(f"capture {name} CLI", records, {seed})
+            if len(records) != 1:
+                raise AssertionError(f"capture {name} CLI: {len(records)} captures")
+            b = batch if pad_to is None else batch_to_tensors(
+                complex_to_batch(raw, pad_to=pad_to), device)
+            eager = sampler.sample(b, P, torch.Generator(device).manual_seed(seed),
+                                   capture=False)
+            check_same(f"capture {name} CLI", {k: results[0][k] for k in eager},
+                       {k: v.cpu().numpy() for k, v in eager.items()})
+            log(f"# capture {name} CLI (--seed {seed}, P={P}, {steps} steps): its graph "
+                f"draws from the CUDA generator --seed seeds (its state copied into the "
+                f"graph's own and back); poses, energies and scores bit-equal to an eager "
+                f"sample from it")
+
+
+def capture_sweeps(device):
+    """The 24 DB5 complexes at CAPTURE_SWEEP_POSES poses through EM, Heun
+    and Picard (K = 10), as the sweep CLI docks them
+    (bucket 128, one generator, bf16, trained mlsb weights), captured
+    (walls, captures, replays, peak memory, the shared pool); EM at one
+    pose also eagerly (its wall), each complex's outputs bit-equal."""
+    from dfmdock_tpu_torch.cli.common import dock_complex
+
+    ds = NPZDataset(os.path.join("data", "db5_npz"))
+    raws = [ds.load_raw(i) for i in range(len(ds.ids))]
+    for r, cid in zip(raws, ds.ids):
+        r["id"] = cid
+    pads = [round_up(r["rec_x"].shape[0] + r["lig_x"].shape[0], 128) for r in raws]
+    poses = CAPTURE_SWEEP_POSES
+    for name, scfg, iters, modes in (
+            ("em", SamplerConfig(num_steps=STEPS), 0, ("captured", "eager")),
+            ("heun", SamplerConfig(num_steps=STEPS, ode=True, integrator="heun"), 0,
+             ("captured",)),
+            ("picard", SamplerConfig(num_steps=STEPS, ode=True), 10, ("captured",))):
+        cfg = DFMDockConfig(model=ModelConfig.fast(), sampler=scfg)
+        net = load_model(DEMO_NPZ, cfg, device)
+        sampler = build_sampler(net, cfg)
+        if iters:
+            sampler = PicardSampler(net, sampler.r3, sampler.so3, scfg, num_iters=iters)
+        walls, results = {}, {}
+        for mode in modes:
+            gen = torch.Generator(device).manual_seed(5)
+            sample = sampler.sample
+            if mode == "eager":
+                sampler.sample = functools.partial(sample, capture=False)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                results[mode], walls[mode], _ = run_path(
+                    f"capture sweep {name} P={poses} {mode}", DOCK_KERNELS_BF16, lambda: [
+                        dock_complex(sampler, r, gen, poses, device, pad_to=pad)[1]
+                        for r, pad in zip(raws, pads)], BF16_ABSENT)
+            finally:
+                sampler.sample = sample
+            if mode == "captured":
+                stats, peak = graph_mod.totals(), torch.cuda.max_memory_allocated() / 1e9
+                pool = pool_gb(sampler.graphs)
+        if "eager" in results:
+            for cid, a, b in zip(ds.ids, results["captured"], results["eager"]):
+                check_same(f"capture sweep {name} {cid}", a, b)
+        if stats.captures != len(set(pads)) or stats.replays != len(raws):
+            raise AssertionError(f"capture sweep {name}: {stats.captures} captures and "
+                                 f"{stats.replays} replays for {len(raws)} complexes in "
+                                 f"{len(set(pads))} buckets")
+        log(f"# capture sweep {name}{f' K={iters}' if iters else ''} P={poses} over "
+            f"{len(raws)} DB5 complexes (bucket 128, bf16, trained mlsb): captured wall "
+            f"{walls['captured']:.3f} s ({stats.captures} captures in {stats.capture_s:.3f} s, "
+            f"{stats.replays} replays)"
+            + (f", eager {walls['eager']:.3f} s, every complex bit-equal" if "eager" in walls
+               else "")
+            + f"; peak memory {peak:.3f} GB, the shared pool "
+            + ("not named by the allocator's snapshot" if pool is None else f"{pool:.3f} GB")
+            + f"; card {CARD[0]}")
+        del sampler, net
+        torch.cuda.empty_cache()
 
 
 def heun_phase(raw, device, out_root):
@@ -1581,12 +2059,12 @@ def heun_phase(raw, device, out_root):
         out[name], wall, launches = run_path(
             f"{name} route", DOCK_KERNELS_BF16 if bf16 else DOCK_KERNELS,
             lambda: sampler.sample(batch, P, gen, record_trajectory=True),
-            BF16_ABSENT if bf16 else F32_ABSENT)
+            BF16_ABSENT if bf16 else F32_ABSENT, trace=True)
         if not torch.isfinite(out[name]["trajectory"]).all():
             raise AssertionError(f"{name} route: non-finite trajectory")
         check_launches(f"{name} route", launches, expected_launches(forwards, bf16))
         log(f"# {name} route P={P} steps={STEPS}: {forwards} forwards, "
-            f"{P * STEPS / wall:.2f} steps/s")
+            f"{P * STEPS / wall:.2f} steps/s (the first sample: capture included, traced)")
     for name, ref in (("heun select", "heun"), ("heun select bf16", "heun bf16")):
         if not all(torch.equal(out[name][k], out[ref][k])
                    for k in ("trajectory", "pos", "energy", "tr_score", "rot_score")):
@@ -1600,7 +2078,7 @@ def heun_phase(raw, device, out_root):
     dock_out = os.path.join(out_root, "dock_heun")
     rows, wall, launches = run_path("heun dock", DOCK_KERNELS_BF16, lambda: dock.main(
         ["--npz", NPZ, "--num-samples", str(P), "--num-steps", str(STEPS), "--integrator",
-         "heun", "--out-dir", dock_out]), BF16_ABSENT)
+         "heun", "--out-dir", dock_out]), BF16_ABSENT, trace=True)
     check_launches("heun dock", launches, expected_launches(forwards, bf16=True))
     with open(os.path.join(dock_out, "metrics.csv")) as f:
         csv_rows = list(csv.DictReader(f))
@@ -1608,7 +2086,7 @@ def heun_phase(raw, device, out_root):
     if len(csv_rows) != P or len(rows) != P or not np.isfinite(energies).all():
         raise AssertionError(f"heun dock: {len(csv_rows)} CSV rows, energies {energies}")
     log(f"# heun dock 1AVX P={P} steps={STEPS} (--integrator heun, bf16 kernel route): wall "
-        f"{wall:.3f} s, {P * STEPS / wall:.2f} denoising steps/s, {forwards} forwards, best "
+        f"{wall:.3f} s (traced), {P * STEPS / wall:.2f} denoising steps/s, {forwards} forwards, best "
         f"DockQ {max(float(r['DockQ']) for r in csv_rows):.4f}")
 
 
@@ -1916,6 +2394,16 @@ def bf16_parity_phase(raw, device):
     dfmdock_parity_phase(raw, device, ModelConfig.fast(), ModelConfig())
 
 
+def bucket_sizes(ids, bucket=128):
+    """{id: its padded N in the sweep CLI's buckets} of DB5 complexes."""
+    ds = NPZDataset(os.path.join("data", "db5_npz"))
+    out = {}
+    for cid in ids:
+        r = ds.load_raw(ds.ids.index(cid))
+        out[cid] = round_up(r["rec_x"].shape[0] + r["lig_x"].shape[0], bucket)
+    return out
+
+
 def dfmdock_sweep_phase(out_root, bf16=False):
     """The sweep --lineage dfmdock with its trained weights, 40 poses, seed 5:
     over the four complexes it was trained on, gated against the JAX record
@@ -1927,7 +2415,8 @@ def dfmdock_sweep_phase(out_root, bf16=False):
     the draw, not the route; the bf16 route's quality over seeds 5-10 is
     read by scripts/dfmdock_witness.py --sides port-cuda-bf16.  Each forward
     makes six agg-only fused_egcl launches (one edge table) of the route's
-    mode and no fused_egcl_coord or fused_energy launch."""
+    mode and no fused_egcl_coord or fused_energy launch.  The sweep
+    captures one sample graph a bucket (the pair heads' static rows)."""
     result = None
     kernels, absent = ((DFMDOCK_KERNELS_BF16, DFMDOCK_ABSENT_BF16) if bf16
                        else (DFMDOCK_KERNELS, DFMDOCK_ABSENT))
@@ -1946,8 +2435,14 @@ def dfmdock_sweep_phase(out_root, bf16=False):
         if launches[egcl] != 6 * launches["edge_table"]:
             raise AssertionError(f"dfmdock sweep: {launches[egcl]} {egcl} for "
                                  f"{launches['edge_table']} forwards")
+        stats, buckets = graph_mod.totals(), len(set(bucket_sizes(ids).values()))
+        if stats.captures != buckets or stats.replays != len(ids):
+            raise AssertionError(f"dfmdock sweep {label}{tag}: {stats.captures} captures and "
+                                 f"{stats.replays} replays for {len(ids)} complexes in "
+                                 f"{buckets} buckets")
         log(f"# dfmdock sweep {label}{tag} ({', '.join(ids)}) P={DFMDOCK_POSES} steps={STEPS}: "
-            f"wall {wall:.3f} s, {launches['edge_table']} forwards")
+            f"wall {wall:.3f} s, {launches['edge_table']} forwards; {stats.captures} "
+            f"capture(s) for {len(ids)} complexes in {buckets} bucket(s) of 128")
         quality_gate(f"dfmdock sweep {label}{tag}", rows,
                      os.path.join("ckpts", "db5_holdout_dfmdock", record), set(ids), gate)
         result = result or launches
@@ -1999,14 +2494,16 @@ def picard_phase(raw, device, out_root):
     score_net_mod.select_edges = recording(edges, select)
     egnn_mod.build_edge_table = recording(bins, table)
     try:
-        seq = seq_sampler.sample(batch, 1, gen(), record_trajectory=True)
+        # eager (capture=False): the recorders run in Python every forward
+        seq = seq_sampler.sample(batch, 1, gen(), record_trajectory=True, capture=False)
         seq_edges, seq_bins = edges[:STEPS], [b[0] for b in bins[:STEPS]]
         edges.clear()
         bins.clear()
-        pic = picard(STEPS).sample(batch, 1, gen(), record_trajectory=True)
+        pic = picard(STEPS).sample(batch, 1, gen(), record_trajectory=True, capture=False)
         pic_edges, pic_bins = edges[STEPS - 1], bins[STEPS - 1][0]
     finally:
         score_net_mod.select_edges, egnn_mod.build_edge_table = select, table
+    # K = T + 1 captured (the default) against the eager K = T
     if not torch.equal(pic["pos"], picard(STEPS + 1).sample(batch, 1, gen())["pos"]):
         raise AssertionError("Picard: K = T and K = T + 1 iterations differ (no fixed point)")
     # the start pose and each step's edge noise, drawn as both samplers draw them
@@ -2135,7 +2632,7 @@ def pdb_dock_phase(out_root, npz_launches):
                              ("csv dock", ["--csv", pairs], 2)):
         out = os.path.join(out_root, label.replace(" ", "_"))
         rows, wall, launches = run_path(label, DOCK_KERNELS, lambda: dock.main(
-            src + common + ["--out-dir", out], FAST_F32), F32_ABSENT)
+            src + common + ["--out-dir", out], FAST_F32), F32_ABSENT, trace=jobs == 1)
         want = {k: jobs * v for k, v in npz_launches.items()}
         if launches != want:
             raise AssertionError(f"{label}: launches {launches}, the --npz dock's x{jobs}: "
@@ -3149,7 +3646,7 @@ def train_phases(out_root, device):
     return train_rates, bf16_windows
 
 
-ONLY = ("scaling", "heun")  # the phases `--only` runs alone
+ONLY = ("scaling", "heun", "capture")  # the phases `--only` runs alone
 
 
 def main(argv=None):
@@ -3207,7 +3704,7 @@ def main(argv=None):
         profile_phase(raw, device, mcfg=ModelConfig.fast())
         log(f"# profiles (f32, bf16): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        rank_launches, inputs["energy"] = rank_phase(out_root)
+        _, inputs["energy"] = rank_phase(out_root)
         log(f"# ranking dock: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         sweep_phase(out_root)
@@ -3251,6 +3748,9 @@ def main(argv=None):
         t0 = time.perf_counter()
         heun_phase(raw, device, out_root)
         log(f"# Heun: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    capture_phase(raw, device)
+    log(f"# capture: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches from the main path that runs it: the dock CLI's
     # default (bf16) for the bf16 mode and the kernels both routes share, the
@@ -3260,7 +3760,7 @@ def main(argv=None):
         "fused_egcl_coord": ("f32 dock", launches),
         "fused_egcl_bf16": ("dock", launches16),
         "fused_egcl_coord_bf16": ("dock", launches16),
-        "fused_energy": ("rank-by reranker", rank_launches),
+        "fused_energy": ("f32 dock", launches),
         "select_topk": ("dock", launches16),
         "edge_bins": ("bins route", route_launches["bins"]),
     }
@@ -3314,6 +3814,8 @@ def main(argv=None):
         lib_ms = time_ms(library[name]) if name in library else None
         b_ms, b_by = bound[name]
         path, path_counts = path_launches[name]
+        if WRAPPER_COUNTS[path][name] == 0:
+            raise AssertionError(f"{name}: its wrapper counted no launch in the {path} run")
         dev_ms, enqueue_ms = device_ms(kern), host_ms(kern)
         lib_note = "" if lib_ms is None else (
             f"; library {lib_ms:.4f} ms, device {device_ms(library[name]):.4f} ms")
@@ -3323,6 +3825,7 @@ def main(argv=None):
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": path_counts[name],
+            "wrapper_launches": WRAPPER_COUNTS[path][name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "host_ms": enqueue_ms,
         })
@@ -3370,6 +3873,10 @@ def run_only(only, raw, device):
             t0 = time.perf_counter()
             heun_phase(raw, device, out_root)
             log(f"# Heun: {time.perf_counter() - t0:.1f} s")
+    if "capture" in only:
+        t0 = time.perf_counter()
+        capture_phase(raw, device)
+        log(f"# capture: {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

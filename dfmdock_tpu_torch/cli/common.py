@@ -91,7 +91,9 @@ def make_runner(sampler, num_samples: int, world=None):
     With `world` (a parallel.World: a --dp run) the poses are split over
     the ranks and gathered (parallel.mesh.make_pose_parallel_sampler, which
     refuses a num_samples the world size does not divide); without, they
-    run batched on this process's device."""
+    run batched on this process's device.  The CLIs build one runner (and
+    one sampler) a run: on CUDA the sampler keeps one captured graph per
+    padded N, so the jobs of one N replay one graph."""
     if world is not None:
         from dfmdock_tpu_torch.parallel.mesh import make_pose_parallel_sampler
 

@@ -59,6 +59,7 @@ from dfmdock_tpu_torch.data.convert import load_npz_complex
 from dfmdock_tpu_torch.data.esm import BACKENDS, ESM_DIM
 from dfmdock_tpu_torch.data.pdb_io import get_full_coords, parse_pdb, save_pdb
 from dfmdock_tpu_torch.sampler import EMSampler, PicardSampler
+from dfmdock_tpu_torch.sampler.graph import SampleGraphs
 
 DEFAULT_RERANKER = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -103,13 +104,15 @@ def _complex_from_pdbs(cid, rec_pdb, lig_pdb, args, device):
             "lig_x": lig_x, "lig_pos": lig.bb_coords, "lig_seq": lig.seq}
 
 
-def _reranker_scores(net, raw, results, rows, weights_path, k_draws, seed, device):
+def _reranker_scores(net, raw, results, rows, weights_path, k_draws, seed, device,
+                     graphs=None):
     """Score every pose with the learned linear re-ranker (higher = better).
 
     The feature matrix is the (family, t) grid of K-draw mean scores named
     in the weights JSON (e.g. ``energy_t1em05_mean``) plus ``num_clashes``,
     z-scored within this complex, then dotted with the fitted weights; the t
-    of each feature is parsed back from its name, as the JAX CLI does."""
+    of each feature is parsed back from its name, as the JAX CLI does.
+    `graphs` keeps the draws' captured graphs (_multi_draw_scores)."""
     with open(weights_path) as f:
         spec = json.load(f)
     feats, w = spec["features"], np.asarray(spec["weights"], np.float64)
@@ -128,7 +131,7 @@ def _reranker_scores(net, raw, results, rows, weights_path, k_draws, seed, devic
         t = float(rest[: -len("_mean")].replace("m", "-"))
         if t not in per_t:
             per_t[t] = _multi_draw_scores(net, raw, pos_all, pad_to, k_draws, seed,
-                                          device, t_eval=t)
+                                          device, t_eval=t, graphs=graphs)
         X[:, j] = per_t[t][fam]
     mu, sd = X.mean(0), X.std(0)
     Xz = (X - mu) / np.where(sd > 1e-12, sd, 1.0)
@@ -246,6 +249,7 @@ def _run(world, args, model=None) -> list[dict]:
         os.makedirs(args.out_dir, exist_ok=True)
 
     generator = torch.Generator(device).manual_seed(args.seed)
+    draws = SampleGraphs()  # the ranking draws' graphs, one per (P, N, t) of the run
     all_rows = []
     for job in load_inputs(args, device):
         rows, results, (R, L) = dock_complex(
@@ -253,7 +257,7 @@ def _run(world, args, model=None) -> list[dict]:
             native=(job["rec_pos"], job["lig_pos"]), run_fn=run_fn,
         )
         if main_rank:
-            _rank_and_write(args, cfg, net, job, rows, results, (R, L), device)
+            _rank_and_write(args, cfg, net, job, rows, results, (R, L), device, draws)
         all_rows.extend(rows)
     if main_rank:
         write_csv(os.path.join(args.out_dir, args.out_csv), all_rows)
@@ -261,19 +265,20 @@ def _run(world, args, model=None) -> list[dict]:
     return all_rows
 
 
-def _rank_and_write(args, cfg, net, job, rows, results, sizes, device):
-    """Rank one complex's docked poses and write its best (or every) pose."""
+def _rank_and_write(args, cfg, net, job, rows, results, sizes, device, draws=None):
+    """Rank one complex's docked poses and write its best (or every) pose;
+    `draws` keeps the ranking draws' captured graphs."""
     R, L = sizes
     if args.rank_by == "reranker":
         scores = _reranker_scores(net, job, results, rows, args.reranker_weights,
-                                  args.reranker_draws, args.seed, device)
+                                  args.reranker_draws, args.seed, device, draws)
         for i, r in enumerate(rows):
             r["rerank_score"] = float(scores[i])
         best = int(np.argmax(scores))  # reranker: higher = better
     elif args.energy_draws > 1 or args.rank_by != "energy":
         scores = _multi_draw_scores(net, job, results["pos"], int(results["pos"].shape[1]),
                                     args.energy_draws, args.seed, device,
-                                    t_eval=cfg.sampler.eps)
+                                    t_eval=cfg.sampler.eps, graphs=draws)
         for i, r in enumerate(rows):
             if args.energy_draws > 1:
                 r["energy_first_draw"] = r["energy"]

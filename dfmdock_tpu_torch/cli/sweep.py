@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import functools
 import os
 
 import numpy as np
@@ -42,7 +43,8 @@ from dfmdock_tpu_torch.data.batching import round_up
 from dfmdock_tpu_torch.data.dataset import NPZDataset, batch_to_tensors, complex_to_batch
 from dfmdock_tpu_torch.data.pdb_io import get_full_coords, save_pdb, save_trajectory
 from dfmdock_tpu_torch.eval import compute_metrics
-from dfmdock_tpu_torch.models.egnn_net import pair_rows
+from dfmdock_tpu_torch.sampler.em import sample_batch
+from dfmdock_tpu_torch.sampler.graph import SampleGraphs
 from dfmdock_tpu_torch.train.losses import _bce_logits, interface_labels
 
 # seeds of the ranking draws: draw k of a run seeded s uses
@@ -130,6 +132,7 @@ def _run(world, args, model=None) -> list[dict]:
     net = load_model(args.ckpt, cfg, device, lineage=args.lineage)
     sampler = build_sampler(net, cfg)
     run_fn = make_runner(sampler, args.num_samples, world)
+    draws = SampleGraphs()  # the ranking draws' graphs, one per (P, N, t) of the run
     ds = NPZDataset(args.data_dir)
     # --ids filters the whole dataset; --limit truncates afterwards
     ids = ds.ids
@@ -174,7 +177,7 @@ def _run(world, args, model=None) -> list[dict]:
             if args.energy_draws > 1 and main_rank:
                 e = _multi_draw_scores(net, raw, results["pos"], pad_to,
                                        args.energy_draws, args.seed, device,
-                                       t_eval=cfg.sampler.eps)["energy"]
+                                       t_eval=cfg.sampler.eps, graphs=draws)["energy"]
                 for i, r in enumerate(recs):
                     r["energy_first_draw"] = r["energy"]
                     r["energy"] = float(e[i])
@@ -208,29 +211,43 @@ def _run(world, args, model=None) -> list[dict]:
 
 
 @torch.no_grad()
-def _multi_draw_scores(net, raw, pos_all, pad_to, k_draws, seed, device, t_eval=1e-3):
+def _multi_draw_scores(net, raw, pos_all, pad_to, k_draws, seed, device, t_eval=1e-3,
+                       graphs=None, capture=None):
     """Mean ranking scores over k independent edge-sampling draws, all poses
     batched in each draw's full forward: energy (the reference's key), icons
     (interface self-consistency BCE) and snorm (predicted score magnitude),
     each [P] float64 and lower-is-better.  Draw k of a run seeded `seed`
-    draws its edges from its own generator (the JAX package's fold_in
-    keys), so the scores do not depend on what ran before."""
+    draws its edges from its own generator, seeded DRAW_SEED_BASE + seed *
+    DRAW_SEED_STRIDE + k (the JAX package's fold_in keys), so the scores do
+    not depend on what ran before.  On CUDA a draw is the replay of one
+    captured graph per (pose count, N, t_eval) of `graphs` (a SampleGraphs
+    that the caller's loop keeps; by default one for this call), drawing
+    from the draw's generator (`capture` as EMSampler.sample's)."""
     batch = batch_to_tensors(complex_to_batch(raw, pad_to=pad_to), device)
-    batch["h0"] = net.embed_nodes(batch["x"])
-    batch["pair_rows"] = pair_rows(batch)
     pos = torch.as_tensor(np.asarray(pos_all), dtype=torch.float32, device=device)
-    labels = interface_labels(pos, batch["lig_mask"], batch["node_mask"])
+    inputs = {"batch": sample_batch(batch), "pos": pos}
+    graphs = graphs or SampleGraphs()
+    body = functools.partial(_draw_scores, net, t_eval=t_eval,
+                             static=graphs.capture_device(pos.device))
     acc = {k: np.zeros(pos.shape[0], np.float64) for k in ("energy", "icons", "snorm")}
     for k in range(k_draws):
-        gen = torch.Generator(device).manual_seed(
-            DRAW_SEED_BASE + seed * DRAW_SEED_STRIDE + k)
-        out = net(batch, pos, t_eval, generator=gen)
-        icons = _bce_logits(out["ires"], labels, batch["node_mask"])
-        snorm = (out["tr_score"].square().sum((-2, -1)).sqrt()
-                 + out["rot_score"].square().sum((-2, -1)).sqrt())
-        for name, v in (("energy", out["energy"]), ("icons", icons), ("snorm", snorm)):
-            acc[name] += v.double().cpu().numpy()
+        gen = torch.Generator(device).manual_seed(DRAW_SEED_BASE + seed * DRAW_SEED_STRIDE + k)
+        out = graphs.run(net, ("draw", t_eval), inputs, body, gen, capture)
+        for name in acc:
+            acc[name] += out[name].double().cpu().numpy()
     return {k: v / k_draws for k, v in acc.items()}
+
+
+def _draw_scores(net, inputs, generator, t_eval, static, warmup=False):
+    """One ranking draw's scores ([P] each) of the poses of `inputs` (a
+    draw is one forward: its warm-up form is the same)."""
+    batch, pos = net.prepare(inputs["batch"], static), inputs["pos"]
+    labels = interface_labels(pos, batch["lig_mask"], batch["node_mask"])
+    out = net(batch, pos, t_eval, generator=generator)
+    icons = _bce_logits(out["ires"], labels, batch["node_mask"])
+    snorm = (out["tr_score"].square().sum((-2, -1)).sqrt()
+             + out["rot_score"].square().sum((-2, -1)).sqrt())
+    return {"energy": out["energy"], "icons": icons, "snorm": snorm}
 
 
 def _write(path, rows):

@@ -153,7 +153,8 @@ def fused_weights(layer, spatial_w, positional_w, dtype=None, kernel=False):
     their kernel-side form (ops/fused_egcl.prepare_layer).  Under no_grad
     they are built once per set of weights and kept on the layer, keyed on
     each parameter's storage and version (an in-place update rebuilds
-    them); with gradients on they are built in the call."""
+    them); with gradients on they are built in the call.  They are never
+    built while a CUDA graph is being captured (a warm-up builds them)."""
     coord = layer.coord_mlp is not None
     params = (layer.edge_mlp["l0"].weight, layer.edge_mlp["l1"].weight, spatial_w,
               positional_w) + ((layer.coord_mlp["l0"].weight,) if coord else ())
@@ -161,6 +162,13 @@ def fused_weights(layer, spatial_w, positional_w, dtype=None, kernel=False):
     cached = getattr(layer, "_fused_weights", None)
     if cached is not None and cached[0] == key and not torch.is_grad_enabled():
         return cached[1]
+    if (not torch.is_grad_enabled() and torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        # tensors made under capture are only computed by a replay: an eager
+        # call before it would read them unwritten
+        raise RuntimeError("fused_weights: the prepared weights would be built inside a "
+                           "CUDA graph capture; build them first, in the capture's warm-up "
+                           "(sampler/graph.py runs one step and the final forward eagerly)")
     rn = rounding(dtype)
     w_hi, w_hj, w_r, w_e = layer.edge_weights()
     w = {"w_hi": rn(w_hi), "w_hj": rn(w_hj), "w_r": w_r.contiguous(),

@@ -21,9 +21,16 @@ other pair of the JAX scan over all N x N is masked to exactly 0, so the
 sums are the same up to their order (the JAX scan adds 64-row chunks of
 all N rows; here 64-row chunks of the receptor rows).  The rows come as
 index lists (`pair_rows`), whose lengths `torch.nonzero` reads from the
-device: the samplers make them once per dock (batch['pair_rows'], as
-h0), so a dock's forwards take one shape and no host sync.  D and the
-cutoff masks are the CA distances of the (detached) input pose.
+device (a host sync), or in their static form, which a sample on the
+capturing device (CUDA) makes once (`prepare`, as h0, inside a captured
+sample; the CPU's eager samples take the exact lists): every row in one order,
+receptor rows first and then ligand rows, with the two validity masks.
+Its shapes are the padded N's, so one captured sample serves every complex
+of a bucket; its scan takes the pairs whose column comes at or after the
+row chunk's first row in that order (every receptor x ligand pair, as a
+ligand row sorts after every receptor row), about N^2 / 2 pairs, the rest
+masked to 0.  D and the cutoff masks are the CA distances of the
+(detached) input pose.
 
 The net does not centre its input; `dfmdock.DFMDockModel` does.
 
@@ -63,15 +70,22 @@ ROW_CHUNK = 64
 NUM_DIST_BINS = 64  # distogram head
 
 
-def pair_rows(batch: dict):
+def pair_rows(batch: dict, static: bool = False):
     """(rec_idx [R], lig_idx [L]): the valid receptor and ligand rows of a
-    padded complex, in ascending order.  torch.nonzero reads their counts
-    from the device (a host sync), so the samplers make them once per dock
-    and pass them as batch['pair_rows']."""
+    padded complex, in ascending order; torch.nonzero reads their counts
+    from the device (a host sync).  With `static`, (order [N], order, rec
+    [N], lig [N]): every row, the valid receptor rows first, then the valid
+    ligand rows, then the rest, each group ascending, as both lists, and the
+    receptor and ligand masks in that order (float32), made without a host
+    sync."""
     valid = batch["node_mask"].to(torch.float32)
     lig = batch["lig_mask"] * valid
     rec = (1.0 - batch["lig_mask"]) * valid
-    return torch.nonzero(rec > 0).squeeze(-1), torch.nonzero(lig > 0).squeeze(-1)
+    if not static:
+        return torch.nonzero(rec > 0).squeeze(-1), torch.nonzero(lig > 0).squeeze(-1)
+    group = torch.where(rec > 0, 0, torch.where(lig > 0, 1, 2))
+    order = torch.argsort(group, stable=True)
+    return order, order, rec[order], lig[order]
 
 
 class PairHead(nn.Module):
@@ -126,6 +140,19 @@ class EGNNNet(nn.Module):
         product is cast as the forwards' (`compute_dtype`)."""
         return linear(x, self.single_embed.weight, dtype=compute_dtype(self.cfg))
 
+    def prepare(self, batch: dict, static: bool = True) -> dict:
+        """`batch` with what a sample's forwards share, made once a sample
+        (inside a captured one): h0 and the pair rows, in their static form
+        where the sample may be captured (`static`; the samplers ask for it
+        on the device they capture on, eager samples there included, so
+        that the two are bit-equal), else the exact lists."""
+        batch = dict(batch)
+        if "h0" not in batch:
+            batch["h0"] = self.embed_nodes(batch["x"])
+        if "pair_rows" not in batch:
+            batch["pair_rows"] = pair_rows(batch, static=static)
+        return batch
+
     def forward(self, batch: dict, pos: torch.Tensor, t, *, generator=None,
                 gumbel=None, edges=None, scores_only: bool = False) -> dict:
         """Predict-path forward, the contract of `ScoreNet.forward`.
@@ -157,8 +184,9 @@ class EGNNNet(nn.Module):
             batch, pos, h, idx, edge_mask, lig_valid, dtype=compute_dtype(c))
 
         rows = batch["pair_rows"] if "pair_rows" in batch else pair_rows(batch)
-        heads = self._pair_heads(h, ca, dist, *rows, rec_valid.sum() * lig_valid.sum(),
-                                 scores_only)
+        rec_idx, lig_idx, *masks = rows
+        heads = self._pair_heads(h, ca, dist, rec_idx, lig_idx,
+                                 rec_valid.sum() * lig_valid.sum(), scores_only, masks or None)
         if c.agg == "mean":
             f = heads["f"] / rec_valid.sum().clamp(min=1.0)
             n_lig = lig_valid.sum().clamp(min=1.0)
@@ -309,13 +337,16 @@ class EGNNNet(nn.Module):
         g_h = torch.cat(g_i, -2) @ w[:, :c] + g_j @ w[:, c : 2 * c]
         return sum(nums), g_h
 
-    def _pair_heads(self, h, ca, dist, rec_idx, lig_idx, n_pairs, scores_only):
+    def _pair_heads(self, h, ca, dist, rec_idx, lig_idx, n_pairs, scores_only, masks=None):
         """The pair heads over receptor rows x ligand columns (`pair_rows`),
-        in chunks of ROW_CHUNK receptor rows; n_pairs the pairs' count (a
-        0-d tensor).  Returns f [P, N, 3] (the force summed over receptor
-        rows, on ligand rows; 0 elsewhere) and, unless `scores_only`, the
-        energy's masked sum and count [P], the confidence's sum [P] and
-        count, and num_clashes [P]."""
+        in chunks of ROW_CHUNK rows; n_pairs the pairs' count (a 0-d
+        tensor).  With `masks` (the static form's (rec, lig); both lists the
+        one order) a chunk of rows i0.. takes the columns i0.., each pair
+        masked to receptor x ligand.  Returns f [P, N, 3] (the force summed
+        over receptor rows, on ligand rows; 0 elsewhere) and, unless
+        `scores_only`, the energy's masked sum and count [P], the
+        confidence's sum [P] and count, and num_clashes [P]."""
+        static = masks is not None
         p, n = h.shape[:2]
         h_l, ca_l = h[:, lig_idx], ca[:, lig_idx]
         d_rl = dist[:, rec_idx][:, :, lig_idx]  # [P, R, L]
@@ -326,25 +357,33 @@ class EGNNNet(nn.Module):
         e_den = h.new_zeros(p)
         c_num = h.new_zeros(p)
         for i0 in range(0, rec_idx.numel(), ROW_CHUNK):
-            rows = slice(i0, i0 + ROW_CHUNK)
-            d_c = d_rl[:, rows]  # [P, chunk, L]
-            pre = lambda k: parts[k][0][:, rows, None, :] + parts[k][1][:, None, :, :]
+            r = slice(i0, i0 + ROW_CHUNK)
+            c = slice(i0 if static else 0, None)
+            mask = masks[0][r, None] * masks[1][None, c] if static else 1.0  # [chunk, L]
+            d_c = d_rl[:, r, c]  # [P, chunk, L]
+            pre = lambda k: parts[k][0][:, r, None, :] + parts[k][1][:, None, c, :]
             fs = self.to_force(pre(0), d_c)  # [P, chunk, L, 1]
-            vec = ca[:, rec_idx[rows], None, :] - ca_l[:, None, :, :]  # rec_i - lig_j
+            vec = ca[:, rec_idx[r], None, :] - ca_l[:, None, c, :]  # rec_i - lig_j
             unit = vec / torch.sqrt((vec * vec).sum(-1, keepdim=True).clamp(min=1e-12))
-            f_acc = f_acc + (unit * fs).sum(1)
+            if static:
+                f_acc[:, c] += (unit * (fs * mask[..., None])).sum(1)
+            else:
+                f_acc = f_acc + (unit * fs).sum(1)
             if not scores_only:
-                em = (d_c < self.cfg.cut_off).to(h.dtype)
+                em = (d_c < self.cfg.cut_off).to(h.dtype) * mask
                 e_num = e_num + (self.to_energy(pre(1), d_c)[..., 0] * em).sum((-2, -1))
                 e_den = e_den + em.sum((-2, -1))
-                c_num = c_num + self.to_confidence(pre(2), d_c)[..., 0].sum((-2, -1))
+                c_num = c_num + (self.to_confidence(pre(2), d_c)[..., 0] * mask).sum((-2, -1))
         f = h.new_zeros(p, n, 3)
         f[:, lig_idx] = f_acc
         out = {"f": f}
         if not scores_only:
+            clash = d_rl <= 3.0
+            if static:
+                clash = clash & (masks[0][:, None] * masks[1][None, :] > 0)
             out["energy"] = (e_num, e_den)
             out["confidence"] = (c_num, n_pairs)
-            out["num_clashes"] = (d_rl <= 3.0).sum((-2, -1)).to(torch.int32)
+            out["num_clashes"] = clash.sum((-2, -1)).to(torch.int32)
         return out
 
     def _ires(self, h: torch.Tensor) -> torch.Tensor:

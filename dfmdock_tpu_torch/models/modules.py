@@ -133,9 +133,12 @@ def pair_energy_rows(hr_c, hl, mask_c, ln_g, ln_b, w2, d_c=None, w_d=None,
 
 
 def time_tensor(t, device) -> torch.Tensor:
-    """A forward's t as a float32 tensor on `device`: a python float, or a
-    [P] tensor with one t per pose."""
-    return torch.as_tensor(t, dtype=torch.float32, device=device)
+    """A forward's t as a float32 tensor on `device`: a python float (filled
+    on the device, no copy from the host, so that a captured sample may make
+    it), or a [P] tensor with one t per pose."""
+    if isinstance(t, torch.Tensor):
+        return t.to(device=device, dtype=torch.float32)
+    return torch.full((), t, dtype=torch.float32, device=device)
 
 
 @torch.no_grad()

@@ -117,6 +117,13 @@ class ScoreNet(nn.Module):
         product is cast as the forwards' (`compute_dtype`)."""
         return linear(x, self.single_embed.weight, dtype=compute_dtype(self.cfg))
 
+    def prepare(self, batch: dict, static: bool = True) -> dict:
+        """`batch` with what a sample's forwards share, made once a sample
+        (inside a captured one): h0 (`static` is EGNNNet's)."""
+        if "h0" in batch:
+            return dict(batch)
+        return {**batch, "h0": self.embed_nodes(batch["x"])}
+
     def forward(self, batch: dict, pos: torch.Tensor, t, *, generator=None,
                 gumbel=None, edges=None, scores_only: bool = False) -> dict:
         """Predict-path forward.

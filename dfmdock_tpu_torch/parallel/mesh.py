@@ -38,7 +38,9 @@ def make_pose_parallel_sampler(sampler, num_samples: int, world: World):
     `generator` is seeded alike on every rank: each rank draws the whole
     set of num_samples start poses from it and keeps its block, so pose i
     starts where it would start without pose parallelism.  The later draws
-    come from the rank's own generator (module docstring)."""
+    come from the rank's own generator (module docstring).  The block runs
+    through `sampler.sample` with its start injected (on CUDA the replay of
+    the sampler's captured graph); the all_gather stays outside it."""
     if num_samples % world.size:
         raise ValueError(f"--dp needs num_samples ({num_samples}) divisible by the "
                          f"device count ({world.size})")

@@ -10,6 +10,8 @@ noise instead.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -17,7 +19,7 @@ from dfmdock_tpu_torch.config import SamplerConfig
 from dfmdock_tpu_torch.diffusion import R3Diffuser, SO3Diffuser
 from dfmdock_tpu_torch.geom import axis_angle_to_matrix, compose_axis_angle, matrix_to_axis_angle
 from dfmdock_tpu_torch.geom.rotations import quaternion_to_matrix
-from dfmdock_tpu_torch.models.egnn_net import pair_rows
+from dfmdock_tpu_torch.sampler.graph import SampleGraphs
 
 
 def _lig_center(pos, lig_mask, mode: str):
@@ -80,8 +82,9 @@ def clash_force(pos, lig_mask, node_mask):
     gradient of -5 * sum(rep) with respect to the ligand atoms, averaged
     over them.  pos [..., N, 3, 3] -> [..., 3]."""
     valid = node_mask.to(torch.float32)
-    lig_w = (lig_mask * valid).repeat_interleave(3)
-    rec_w = ((1.0 - lig_mask) * valid).repeat_interleave(3)
+    per_atom = lambda w: w[:, None].expand(-1, 3).reshape(-1)  # each row's 3 atoms
+    lig_w = per_atom(lig_mask * valid)
+    rec_w = per_atom((1.0 - lig_mask) * valid)
     atoms = pos.detach().reshape(*pos.shape[:-3], -1, 3)
     with torch.enable_grad():
         lig_atoms = atoms.clone().requires_grad_(True)
@@ -93,6 +96,13 @@ def clash_force(pos, lig_mask, node_mask):
         rep = rep * rec_w[:, None] * lig_w[None, :]
         (grad,) = torch.autograd.grad(-w_rep * rep.sum(), lig_atoms)
     return (grad * lig_w[:, None]).sum(-2) / lig_w.sum().clamp(min=1.0)
+
+
+def sample_batch(batch: dict) -> dict:
+    """The tensors of `batch` that a sample reads (the padded complex, and
+    what the net's `prepare` made, where given): a captured sample's static
+    inputs."""
+    return {k: v for k, v in batch.items() if isinstance(v, (torch.Tensor, tuple))}
 
 
 def step_schedule(cfg: SamplerConfig):
@@ -107,7 +117,9 @@ def step_schedule(cfg: SamplerConfig):
 
 
 class EMSampler:
-    """Reverse-SDE docking sampler over a ScoreNet."""
+    """Reverse-SDE docking sampler over a ScoreNet.  On CUDA each sample runs
+    as the replay of one captured CUDA graph per shape key (sampler/graph.py);
+    on the CPU it runs eagerly, the same body."""
 
     def __init__(self, net, r3: R3Diffuser, so3: SO3Diffuser, cfg: SamplerConfig):
         if cfg.integrator not in ("em", "heun"):
@@ -118,27 +130,42 @@ class EMSampler:
         self.r3 = r3
         self.so3 = so3
         self.cfg = cfg
+        self.graphs = SampleGraphs()
 
     @torch.no_grad()
     def sample(self, batch: dict, num_samples: int, generator: torch.Generator,
-               init=None, noise=None, record_trajectory: bool = False) -> dict:
+               init=None, noise=None, record_trajectory: bool = False,
+               capture: bool | None = None) -> dict:
         """Dock `num_samples` poses of one padded complex.
 
         init: optional (pos0 [P, N, 3, 3], tr_update [P, 1, 3], rot_update
         [P, 1, 3]) in place of the random start.  noise: optional (z_rot,
         z_tr), each [num_steps, P, 1, 3] standard normals, in place of the
-        generator's step noise.
+        generator's step noise.  capture: run the sample as a captured CUDA
+        graph (default: on CUDA tensors; True on CPU tensors raises; False
+        runs it eagerly on the card too, for callers that hook the forward
+        in Python).
 
         Returns pos [P, N, 3, 3], tr_update / rot_update / tr_score /
         rot_score [P, 1, 3], energy [P], num_clashes [P] (+ trajectory
         [P, num_steps, N, 3, 3], the pose after every step)."""
+        inputs = {"batch": sample_batch(batch), "init": init, "noise": noise}
+        key = ("em", num_samples, record_trajectory)
+        body = functools.partial(self._body, num_samples=num_samples,
+                                 record_trajectory=record_trajectory,
+                                 static=self.graphs.capture_device(batch["pos"].device))
+        return self.graphs.run(self.net, key, inputs, body, generator, capture)
+
+    def _body(self, inputs: dict, generator, num_samples: int, record_trajectory: bool,
+              static: bool, warmup: bool = False) -> dict:
+        """The whole sample from `inputs` (sample's batch, init and noise),
+        drawing from `generator`, the net's shared inputs in their static
+        form where `static`; the warm-up form runs the first step and the
+        final forward."""
         cfg = self.cfg
         ts, dt, tr_ns, rot_ns = step_schedule(cfg)
-        batch = dict(batch)
-        if "h0" not in batch:
-            batch["h0"] = self.net.embed_nodes(batch["x"])
-        if "pair_rows" not in batch:  # the DFMDock net's pair heads' rows, made once
-            batch["pair_rows"] = pair_rows(batch)
+        batch = self.net.prepare(inputs["batch"], static)
+        init, noise = inputs["init"], inputs["noise"]
         lig_mask = batch["lig_mask"]
         if init is None:
             pos, tr_u, rot_u = randomize_pose(generator, batch["pos"], lig_mask,
@@ -163,7 +190,7 @@ class EMSampler:
             return rot, tr
 
         traj = []
-        for s, t in enumerate(ts):
+        for s, t in enumerate(ts[:1] if warmup else ts):
             out = self.net(batch, pos, t, generator=generator, scores_only=True)
             z_rot, z_tr = normal(s, 0), normal(s, 1)
             rot, tr = updates(out, t, s, z_rot, z_tr)

@@ -14,17 +14,26 @@ sequential ODE trajectory; fewer trade accuracy for latency.  Each step's
 edge-sampling noise is drawn once, from the generator in the order the
 sequential sampler draws it, and held fixed across iterations: the fixed
 point is `EMSampler.sample`'s ODE trajectory with the same generator seed.
-ODE only, no clash force, integrator 'em'.
+ODE only, no clash force, integrator 'em'.  On CUDA a sample (start pose,
+edge noise, the K rounds and the final forward) is the replay of one
+captured graph (sampler/graph.py), as the JAX package jits it whole.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from dfmdock_tpu_torch.config import SamplerConfig
 from dfmdock_tpu_torch.geom import compose_axis_angle
 from dfmdock_tpu_torch.models.edges import sample_gumbel
-from dfmdock_tpu_torch.models.egnn_net import pair_rows
-from dfmdock_tpu_torch.sampler.em import modify_coords, randomize_pose, step_schedule
+from dfmdock_tpu_torch.sampler.em import (
+    modify_coords,
+    randomize_pose,
+    sample_batch,
+    step_schedule,
+)
+from dfmdock_tpu_torch.sampler.graph import SampleGraphs
 
 
 class PicardSampler:
@@ -45,22 +54,40 @@ class PicardSampler:
         self.so3 = so3
         self.cfg = cfg
         self.num_iters = num_iters
+        self.graphs = SampleGraphs()
 
     @torch.no_grad()
     def sample(self, batch: dict, num_samples: int, generator: torch.Generator,
-               init=None, record_trajectory: bool = False) -> dict:
+               init=None, record_trajectory: bool = False,
+               capture: bool | None = None) -> dict:
         """`EMSampler.sample`'s contract: dock `num_samples` poses of one
         padded complex, `init` an optional start (pos0 [P, N, 3, 3],
         tr_update [P, 1, 3], rot_update [P, 1, 3]); the trajectory is the
-        final iterate's."""
+        final iterate's.  On CUDA the K rounds and the final forward run as
+        the replay of one captured graph (`capture` as EMSampler's)."""
+        ts, _, _, _ = step_schedule(self.cfg)
+        device = batch["pos"].device
+        # each state's t, made outside the sample (a copy from the host)
+        t_all = torch.tensor(ts, dtype=torch.float32, device=device).repeat_interleave(
+            num_samples)
+        inputs = {"batch": sample_batch(batch), "init": init, "t_all": t_all}
+        key = ("picard", self.num_iters, num_samples, record_trajectory)
+        body = functools.partial(self._body, num_samples=num_samples,
+                                 record_trajectory=record_trajectory,
+                                 static=self.graphs.capture_device(device))
+        return self.graphs.run(self.net, key, inputs, body, generator, capture)
+
+    def _body(self, inputs: dict, generator, num_samples: int, record_trajectory: bool,
+              static: bool, warmup: bool = False) -> dict:
+        """The K rounds and the final forward from `inputs` (sample's batch,
+        init and each state's t), drawing from `generator`, the net's
+        shared inputs static where `static`; the warm-up form runs one
+        round."""
         cfg = self.cfg
         ts, dt, _, _ = step_schedule(cfg)
         T = len(ts)
-        batch = dict(batch)
-        if "h0" not in batch:
-            batch["h0"] = self.net.embed_nodes(batch["x"])
-        if "pair_rows" not in batch:  # the DFMDock net's pair heads' rows, made once
-            batch["pair_rows"] = pair_rows(batch)
+        batch = self.net.prepare(inputs["batch"], static)
+        init, t_all = inputs["init"], inputs["t_all"]
         lig_mask = batch["lig_mask"]
         if init is None:
             pos0, tr_u, rot_u = randomize_pose(generator, batch["pos"], lig_mask,
@@ -73,11 +100,10 @@ class PicardSampler:
         gumbel = None
         if self.net.cfg.sample_size > 0:
             gumbel = torch.cat([sample_gumbel((p, n, n), generator, device) for _ in ts])
-        t_all = torch.tensor(ts, dtype=torch.float32, device=device).repeat_interleave(p)
         zeros = torch.zeros((p, 1, 3), device=device)
 
         states = pos0.expand(T, -1, -1, -1, -1)  # states[s]: the pose before step s
-        for _ in range(self.num_iters):
+        for _ in range(1 if warmup else self.num_iters):
             out = self.net(batch, states.reshape(T * p, n, 3, 3), t_all, gumbel=gumbel,
                            scores_only=True)
             rot_s = out["rot_score"].reshape(T, p, 1, 3)

@@ -138,14 +138,16 @@ class CPUDraws:
     each of the first `num_steps` forwards then the step's SDE noise (z_rot,
     z_tr), from the CPU generator `generator`, in the order the sampler
     draws them on the CPU; `noise` holds the SDE noise as the two lists that
-    `EMSampler.sample(noise=)` indexes by step."""
+    `EMSampler.sample(noise=)` indexes by step.  Its draws are Python work
+    in each forward, which a replayed graph would not run: its samples run
+    eagerly (capture=False)."""
 
     def __init__(self, net, generator, num_steps):
         self.net, self.generator, self.num_steps = net, generator, num_steps
         self.noise = ([], [])
 
-    def embed_nodes(self, x):
-        return self.net.embed_nodes(x)
+    def prepare(self, batch, static):
+        return self.net.prepare(batch, static)
 
     def __call__(self, batch, pos, t, generator=None, scores_only=False):
         import torch
@@ -193,8 +195,8 @@ def port_cpu_draws_side(ids, seed, num_samples, num_steps, exact, device="cuda")
         sampler = build_sampler(draws, cfg)
         recs, _, _ = dock_complex(
             sampler, raw, None, num_samples, device, native=(raw["rec_pos"], raw["lig_pos"]),
-            pad_to=pad_to, run_fn=lambda b, g: sampler.sample(b, num_samples, None, init=init,
-                                                             noise=draws.noise))
+            pad_to=pad_to, run_fn=lambda b, g: sampler.sample(
+                b, num_samples, None, init=init, noise=draws.noise, capture=False))
         rows += recs
     return groups_of(rows)
 

@@ -1,9 +1,12 @@
-"""The DFMDock predict path's pair heads in two forms on a CUDA card.
+"""The DFMDock predict path's pair heads in three forms on a CUDA card.
 
     python3 scripts/torch_pair_heads_probe.py   # one CUDA card, ~1 min
 
 - `receptor x ligand`: the port's form (`EGNNNet._pair_heads` over the
   batch's receptor and ligand row lists, `egnn_net.pair_rows`);
+- `static`: the samplers' form (`pair_rows(batch, static=True)`: every
+  row, receptor rows first, with the validity masks; a chunk of rows takes
+  the columns from its own first row on, N^2 / 2 pairs);
 - `masked N x N`: the JAX package's form (`dfmdock_tpu/models/egnn_net.py`,
   its predict scan): every row against every column in chunks of 64 rows,
   the pairs that are not receptor x ligand masked to 0.
@@ -11,8 +14,8 @@
 Both on the trained weights (`ckpts/db5_holdout_dfmdock/weights.npz`),
 chip_smoke's P poses of 1AVX at its native pose, the EGNN's output h
 stood in by seeded values: the CUDA-event time of each (chip_smoke's
-`time_ms`), and their outputs within rel 1e-5 of each other (the masked
-form adds pairs that are 0).
+`time_ms`), and each one's outputs within rel 1e-5 of the first's (the
+masked forms add pairs that are 0).
 """
 from __future__ import annotations
 
@@ -83,21 +86,27 @@ def main(reps=10):
     forms = {"receptor x ligand": lambda: net._pair_heads(h, ca, dist, rec_idx, lig_idx,
                                                           rec.sum() * lig.sum(), False),
              "masked N x N": lambda: masked_pair_heads(net, h, ca, dist, rec, lig)}
+    order, _, rec_s, lig_s = pair_rows(batch, static=True)
+    forms["static"] = lambda: net._pair_heads(h, ca, dist, order, order, rec.sum() * lig.sum(),
+                                              False, (rec_s, lig_s))
     outs, ms = {}, {}
     with torch.no_grad():
         for name, run in forms.items():
             outs[name] = run()
             ms[name] = cs.time_ms(run, reps=3, inner=reps)
-    a, b = outs.values()
-    for k in a:
-        for x, y in zip(*((v,) if torch.is_tensor(v) else v for v in (a[k], b[k]))):
-            if (x.double() - y.double()).abs().max() > REL * y.double().abs().max():
-                raise AssertionError(f"pair heads: {k} differs between the two forms")
+    ref = outs["receptor x ligand"]
+    for name, out in outs.items():
+        for k in ref:
+            for x, y in zip(*((v,) if torch.is_tensor(v) else v for v in (out[k], ref[k]))):
+                if (x.double() - y.double()).abs().max() > REL * y.double().abs().max():
+                    raise AssertionError(f"pair heads: {k} of the {name} form differs")
     cs.log(f"# DFMDock pair heads (P={cs.P}, 1AVX, N={n}, trained weights, outputs within "
            f"rel {REL}): receptor x ligand ({rec_idx.numel()} x {lig_idx.numel()}) "
            f"{ms['receptor x ligand']:.3f} ms, masked N x N ({n} x {n}) "
            f"{ms['masked N x N']:.3f} ms, ratio "
-           f"{ms['masked N x N'] / ms['receptor x ligand']:.2f}; card {smi}")
+           f"{ms['masked N x N'] / ms['receptor x ligand']:.2f}; static ({n} rows, "
+           f"N^2 / 2 pairs) {ms['static']:.3f} ms, ratio "
+           f"{ms['static'] / ms['receptor x ligand']:.2f}; card {smi}")
     return 0
 
 

@@ -1,7 +1,8 @@
-"""The helpers of chip_smoke.py's scaling (10b) and Heun (10c) phases on
-the CPU: the kernel launches a sample must make (sample_forwards,
-expected_launches) against what the port's sampler calls at each of
-bench.py's pose counts, with either integrator and on either route; the
+"""The helpers of chip_smoke.py's scaling (10b), Heun (10c) and capture
+(10d) phases on the CPU: the kernel launches a sample must make
+(sample_forwards, expected_launches) against what the port's sampler calls
+at each of bench.py's pose counts, with either integrator and on either
+route, eagerly and through the graph helper's stand-in capture; the
 pose-blocked forward and the plain-version context of the scaling parity.
 On the CPU a wrapper runs its plain version and counts nothing, so each
 plain version the wrappers fall back to counts here as a launch.
@@ -17,6 +18,8 @@ from dfmdock_tpu_torch.config import DFMDockConfig, ModelConfig, SamplerConfig
 from dfmdock_tpu_torch.data.dataset import batch_to_tensors
 from dfmdock_tpu_torch.cli.common import build_sampler, load_model
 from dfmdock_tpu_torch.ops import edge_table, energy_head, fused_egcl, select_topk
+from dfmdock_tpu_torch.sampler.graph import SampleGraphs
+from _graph_stub import StubGraphs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
@@ -101,6 +104,36 @@ def test_sample_launches_match_the_helpers(counted, poses, integrator):
         assert out["pos"].shape[0] == poses and torch.isfinite(out["energy"]).all()
         want = cs.expected_launches(cs.sample_forwards(STEPS, integrator), bf16, mcfg.depth)
         assert cs.launch_counts() == want, (bf16, cs.launch_counts())
+
+
+@pytest.mark.parametrize("integrator", ["em", "heun"])
+def test_captured_sample_launches_match_the_helpers(counted, integrator):
+    """Through the samplers' graph helper (the CPU stand-in for the
+    capture) the wrappers count where they are called: the first sample's
+    warm-up (sample_forwards(1, ...)) and capture (expected_launches(
+    sample_forwards(...))), and nothing in a replay; the helper records the
+    warm-up's, the capture's and the two replays' launches, which
+    chip_smoke.run_path holds a run's trace against."""
+    batch = batch_to_tensors(cs.synthetic_complex(N_PAD, seed=3), torch.device("cpu"))
+    scfg = SamplerConfig(num_steps=STEPS, ode=integrator == "heun", integrator=integrator)
+    mcfg = ModelConfig.fast(compute_dtype="float32", **TINY)
+    cfg = DFMDockConfig(model=mcfg, sampler=scfg)
+    sampler = build_sampler(load_model(None, cfg, torch.device("cpu")), cfg)
+    sampler.graphs = SampleGraphs(StubGraphs())
+    want = cs.expected_launches(cs.sample_forwards(STEPS, integrator), False, mcfg.depth)
+    warm = cs.expected_launches(cs.sample_forwards(1, integrator), False, mcfg.depth)
+    gen = torch.Generator().manual_seed(3)
+    for first in (True, False):
+        cs.reset_counts()
+        sampler.sample(batch, 4, gen)
+        assert cs.launch_counts() == ({k: warm[k] + v for k, v in want.items()} if first
+                                      else dict.fromkeys(want, 0))
+    stats = sampler.graphs.stats
+    assert (stats.captures, stats.replays) == (1, 2)
+    nonzero = lambda d: {k: v for k, v in d.items() if v}
+    assert stats.warmup_launches == nonzero(warm)
+    assert stats.captured_launches == nonzero(want)
+    assert stats.replayed_launches == nonzero({k: 2 * v for k, v in want.items()})
 
 
 def test_blocked_forward_and_plain_kernels(counted):

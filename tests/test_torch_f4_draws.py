@@ -97,8 +97,8 @@ class ZeroNet:
     """A score network that returns zero scores: each step's update is then
     the SDE noise alone."""
 
-    def embed_nodes(self, x):
-        return x
+    def prepare(self, batch, static):
+        return {**batch, "h0": batch["x"]}
 
     def __call__(self, batch, pos, t, generator=None, scores_only=False):
         z = torch.zeros(pos.shape[0], 1, 3)

@@ -213,22 +213,22 @@ def test_pair_heads_match_nonzero_form(scores_only):
 
 def test_dock_makes_pair_rows_once(monkeypatch):
     """A dock of the DFMDock net makes the pair heads' row lists once (the
-    sampler's batch['pair_rows']), not in each of its forwards."""
+    net's `prepare` at the start of the sample, as batch['pair_rows']), not
+    in each of its forwards."""
     from _torch_parity import padded
 
     from dfmdock_tpu_torch.config import SamplerConfig
     from dfmdock_tpu_torch.sampler import em
 
     calls = {"sampler": 0, "forward": 0}
+    rows = egnn_net.pair_rows
+    where = ["sampler"]
 
-    def counting(where, fn):
-        def wrapped(batch):
-            calls[where] += 1
-            return fn(batch)
-        return wrapped
+    def counting(batch, static=False):
+        calls[where[0]] += 1
+        return rows(batch, static)
 
-    monkeypatch.setattr(em, "pair_rows", counting("sampler", em.pair_rows))
-    monkeypatch.setattr(egnn_net, "pair_rows", counting("forward", egnn_net.pair_rows))
+    monkeypatch.setattr(egnn_net, "pair_rows", counting)
     net = small_net("dfmdock", seed=3).eval()
     b = padded(30, 20, seed=4, pad_to=CROP)
     batch = {k: torch.from_numpy(b[k]) for k in ("x", "pos", "node_mask", "lig_mask",
@@ -238,6 +238,7 @@ def test_dock_makes_pair_rows_once(monkeypatch):
     out = sampler.sample(batch, 2, torch.Generator().manual_seed(0))
     assert torch.isfinite(out["pos"]).all()
     assert calls == {"sampler": 1, "forward": 0}
+    where[0] = "forward"
     net(batch, batch["pos"][None], 0.5)
     assert calls == {"sampler": 1, "forward": 1}
 
@@ -251,11 +252,11 @@ def exact_gather(monkeypatch):
     monkeypatch.setattr(gather, "gather_rows", lambda src, idx: jnp.take(src, idx, axis=0))
 
 
-@pytest.mark.parametrize("rows", ["per forward", "hoisted"])
+@pytest.mark.parametrize("rows", ["per forward", "hoisted", "static"])
 def test_pair_heads_match_jax_egnn_net(rows, exact_gather):
-    """The predict forward of EGNNNet, its row lists made in the forward or
-    hoisted into the batch (batch['pair_rows'], as the samplers pass them),
-    against JAX's EGNNNet: outputs within FWD_REL, and the gradients of a
+    """The predict forward of EGNNNet, its row lists made in the forward,
+    hoisted into the batch (batch['pair_rows']) or in the static form the
+    samplers make (`prepare`), against JAX's EGNNNet: outputs within FWD_REL, and the gradients of a
     fixed combination of them with respect to every weight within GRAD_REL
     of each array's largest (knn-only edges)."""
     import jax
@@ -286,6 +287,9 @@ def test_pair_heads_match_jax_egnn_net(rows, exact_gather):
     pb = port_batch(b)
     if rows == "hoisted":
         pb["pair_rows"] = pair_rows(pb)
+    elif rows == "static":
+        pb = net.prepare(pb, static=True)
+        pb.pop("h0")
     out_p = net(pb, pb["pos"][None], 0.3)
     combine(out_p, torch).backward()
     for k in outputs:

@@ -31,3 +31,32 @@ def test_jax_draws_side_runs_on_the_cpu():
     got = witness.jax_draws_side(["1ZHI"], 5, 1, 1, device="cpu")
     assert sorted(got) == ["1ZHI"] and got["1ZHI"].shape == (1, 2)
     assert np.isfinite(got["1ZHI"]).all()
+
+
+def test_cpu_draws_side_runs_eagerly_where_samples_capture(monkeypatch):
+    """Where samples capture (here the CPU stand-in of the capture), the
+    CPU-draw side still runs its samples eagerly, as its net draws in
+    Python each forward, and gives finite rows; capturing such a net
+    raises, naming capture=False."""
+    import pytest
+    import torch
+
+    import _torch_parity as tp
+    from _graph_stub import StubGraphs
+    from dfmdock_tpu_torch.config import R3Config, SamplerConfig, SO3Config
+    from dfmdock_tpu_torch.diffusion import R3Diffuser, SO3Diffuser
+    from dfmdock_tpu_torch.models import DFMDockModel
+    from dfmdock_tpu_torch.sampler import EMSampler, graph
+
+    monkeypatch.setattr(graph, "CudaGraphs", StubGraphs)
+    got = witness.port_cpu_draws_side(["1ZHI"], 6, 1, 1, exact=True, device="cpu")
+    assert sorted(got) == ["1ZHI"] and got["1ZHI"].shape == (1, 2)
+    assert np.isfinite(got["1ZHI"]).all()
+    _, pc = tp.configs(sample_size=8)
+    net = DFMDockModel(pc).init_weights(torch.Generator().manual_seed(0)).eval()
+    draws = witness.CPUDraws(net, torch.Generator().manual_seed(0), 1)
+    sampler = EMSampler(draws, R3Diffuser(R3Config()), SO3Diffuser(SO3Config()),
+                        SamplerConfig(num_steps=1))
+    with pytest.raises(TypeError, match="capture=False"):
+        sampler.sample(tp.port_batch(tp.padded(20, 12, pad_to=32)), 1,
+                       torch.Generator().manual_seed(0))
